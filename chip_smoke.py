@@ -8,26 +8,43 @@ toolkit; builds the kernels from `graphite_tpu_torch/csrc/` at first use.
 Phases, one JSON line each:
 
  1. device: the card, its power limit, torch/CUDA versions;
- 2. build: the four kernels, one `nvcc` each, in parallel;
+ 2. build: the four kernels, one `nvcc` each, in parallel, and what
+    `-Xptxas -v` says of each (registers, spills);
  3. kernels: each kernel against its plain PyTorch version on the card,
     `torch.equal` on every output and every state tensor it updates —
     on every iteration of the first part of the full-width (1024-tile)
     FFT run, and on hand-made edge cases (ANY_SENDER ties, a full ring,
-    barrier-init races, split barriers, the qend bound of plain-run
-    batching); then, at the main path's shapes, each kernel's device time
-    per call (a CUDA graph of 100 calls, host overhead excluded), its
-    time per eager call (host included) and its plain version's time;
+    every lane an ANY_SENDER receiver, all-to-one sends with a named or
+    ANY_SENDER receive of a same-iteration send, self-sends, overflow and
+    pop in one iteration, barrier-init races, split barriers, follow-on
+    windows cut by the row's end and by qend under per-lane frequencies);
+    then, at the main path's shapes and at two states of the FFT (the
+    send phase, iteration 200, and the receive phase, iteration 1060),
+    each kernel's device time per call (a CUDA graph of 100 calls, host
+    overhead excluded), its time per eager call (host included; for the
+    two bound kernels also with the binding dropped before every call,
+    i.e. validating every argument each call) and its plain version's
+    time; and `lane_commit` alone at a follow-on state (every lane at a
+    PLAIN record with a window of PLAIN records behind it, one
+    frequency), which the FFT never reaches;
  4. end to end: the FFT at 64 and 256 tiles and the message ring at 64
     tiles on the card and on the CPU (plain path): every SimResults
     field, n_quanta and last_n_iterations equal;
  5. full width: the headline config (1024 tiles, SPLASH-2 FFT with 2048
     points a tile, emesh_hop_counter, lax) through Simulator.warmup() and
-    .run(); every tile done, the instruction total checked against the
-    trace, and each kernel's launch count on that run above zero.
+    RUNS timed .run()s from the same initial state; every tile done, the
+    instruction total checked against the trace, each kernel's launch
+    count on each run above zero, and `user_mailbox` and `lane_commit`
+    launched exactly once per iteration; then torch.profiler windows
+    over one `inner_block` of the same run at each of the two timing
+    states: kernel device time and launches by name (`user_mailbox`:
+    one device launch a call), and the device's busy share.
 
 Then the kernels line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero before the
-last line.  Imports nothing of JAX or of the JAX package.
+last line.  Imports nothing of JAX or of the JAX package.  To compare
+two trees on one card, run each tree's own copy of this script in one
+call (parent, change, change, parent).
 """
 
 from __future__ import annotations
@@ -48,6 +65,9 @@ REPLACES = {
     "lane_commit": "graphite_tpu/engine/step.py:842",
 }
 KERNEL_ORDER = tuple(REPLACES)
+BOUND_KERNELS = ("user_mailbox", "lane_commit")
+TIMING_AT = {"send_phase": 200, "receive_phase": 1060}
+RUNS = 5
 
 BENCH_CONFIG = """
 [general]
@@ -344,7 +364,171 @@ def edge_cases(sim, stats) -> list:
             45_000, dtype=torch.int64, device=dev), sim._cost_table)
         check_kernel("lane_commit", ctx4, st, ln, stats)
     names.append("commit_qend_bound_batching")
+
+    names += mailbox_edge_cases(sim, stats, base_st, base_ln, ctx, rint,
+                                rbool)
+    names += follow_on_edge_cases(sim, stats, base_st, base_ln, rint,
+                                  rbool)
     return names
+
+
+def mailbox_edge_cases(sim, stats, base_st, base_ln, ctx, rint,
+                       rbool) -> list:
+    """The one-launch mailbox's corners at full width: every lane an
+    ANY_SENDER receiver, all-to-one sends with a named and an ANY_SENDER
+    receive of a same-iteration send (ties included), self-sends, and an
+    overflow with a pop in one iteration."""
+    import torch
+
+    from graphite_tpu_torch.models.network_user import route_latency_ps
+    from graphite_tpu_torch.trace.schema import Op
+
+    dev = sim.device
+    T = sim.params.n_tiles
+    D = sim.params.mailbox_depth
+    tiles = torch.arange(T, device=dev, dtype=torch.int32)
+    SEND, RECV = int(Op.SEND), int(Op.NET_RECV)
+    names = []
+
+    def fresh(count_hi):
+        st, ln = base_st.clone(), base_ln.clone()
+        net = st.net
+        net.count.copy_(rint(0, count_hi, (T, T), torch.int32))
+        net.head.copy_(net.count + rint(0, 3, (T, T), torch.int32))
+        net.time_ps.copy_(rint(0, 4, (T, D, T)) * 1000)
+        net.lat_ps.copy_(rint(0, 50, (T, D, T), torch.int32))
+        ln.aux1.copy_(rint(0, 4096, (T,), torch.int32))
+        ln.active.fill_(True)
+        st.core.clock_ps.copy_(rint(0, 5000, (T,)))
+        return st, ln
+
+    # every lane an active ANY_SENDER receiver (16 MB of ring reads)
+    for count_hi in (D + 1, 2):
+        st, ln = fresh(count_hi)
+        ln.op.fill_(RECV)
+        ln.aux0.fill_(-1)
+        check_kernel("user_mailbox", ctx, st, ln, stats)
+    names.append("all_any_sender")
+
+    # all-to-one: every other lane sends to lane 0, which receives the
+    # new entry of a named sender (an empty cell before) or takes any
+    # sender, where every new send and some old entries tie
+    for recv_from in (7, -1):
+        st, ln = fresh(2)
+        ln.op.fill_(SEND)
+        ln.op[0] = RECV
+        ln.aux0.fill_(0)
+        ln.aux0[0] = recv_from
+        net = st.net
+        if recv_from >= 0:
+            net.count[0, recv_from] = 0
+        else:
+            v = 10**6
+            lat = route_latency_ps(sim.params.net, tiles,
+                                   torch.zeros_like(tiles), ln.aux1,
+                                   st.models_enabled)
+            st.core.clock_ps.copy_(v - lat)
+            net.count[0].copy_(rint(0, 2, (T,), torch.int32))
+            net.head[0].copy_(net.count[0] + rint(0, 3, (T,), torch.int32))
+            tail = torch.fmod(net.head[0] - net.count[0], D).long()
+            old = torch.where(rbool(0.5, (T,)), v, v + 1000)
+            net.time_ps[0, tail, tiles.long()] = old
+        check_kernel("user_mailbox", ctx, st, ln, stats)
+        if not bool(ln.recv_now[0]):
+            raise AssertionError("edge case: all-to-one receive missed")
+    names.append("all_to_one_named+any_sender_ties")
+
+    # self-sends next to receives from self
+    st, ln = fresh(D + 1)
+    ln.op.copy_(torch.where(tiles % 2 == 0, SEND, RECV).to(torch.int32))
+    ln.aux0.copy_(tiles)
+    check_kernel("user_mailbox", ctx, st, ln, stats)
+    names.append("self_send")
+
+    # odd lane 2k+1 sends into a full ring of lane 2k, which pops it
+    st, ln = fresh(D)
+    odd = tiles % 2 == 1
+    ln.op.copy_(torch.where(odd, SEND, RECV).to(torch.int32))
+    ln.aux0.copy_(torch.where(odd, tiles - 1, tiles + 1).to(torch.int32))
+    even = torch.arange(0, T - 1, 2, device=dev)
+    st.net.count[even, even + 1] = D
+    st.net.head[even, even + 1] = D + 1
+    check_kernel("user_mailbox", ctx, st, ln, stats)
+    if not bool(st.net.overflow):
+        raise AssertionError("edge case: overflow+pop did not overflow")
+    names.append("overflow_and_pop")
+    return names
+
+
+def follow_on_state(sim, base_st, base_ln, rint, rbool, plain_ops, freqs,
+                    qend: int, en_post: bool, near_end: float):
+    """(ctx, state, lanes) of a lane_commit call where every lane is at a
+    PLAIN record (so it advances) and its follow-on window holds records
+    drawn from `plain_ops`, at a post-DVFS frequency drawn from `freqs`;
+    a share `near_end` of the lanes sits within a window of the row's
+    end."""
+    import torch
+
+    dev = sim.device
+    T = sim.params.n_tiles
+    L = sim.device_trace.length
+    pool = torch.tensor(plain_ops, dtype=torch.uint8, device=dev)
+    trace = dataclasses.replace(sim.device_trace)
+    trace.op = pool[rint(0, len(pool), (T, L))].contiguous()
+    freqs = torch.tensor(freqs, dtype=torch.int32, device=dev)
+    params = dataclasses.replace(sim.params,
+                                 units=sim.params.units | {"dvfs",
+                                                           "models"})
+    st, ln = base_st.clone(), base_ln.clone()
+    ln.op.copy_(rint(0, 7, (T,), torch.int32))     # PLAIN: advance
+    ln.active.copy_(rbool(0.95, (T,)))
+    ln.cost_ps.copy_(rint(0, 3000, (T,)))
+    ln.freq_new.copy_(freqs[rint(0, len(freqs), (T,))])
+    ln.en_post.fill_(en_post)
+    st.core.idx.copy_(torch.where(
+        rbool(near_end, (T,)), rint(L - 17, L + 2, (T,)),
+        rint(0, L - 17, (T,))).to(torch.int32))
+    st.core.clock_ps.copy_(rint(0, 25_000, (T,)))
+    ctx = Ctx(params, trace, torch.tensor(qend, dtype=torch.int64,
+                                          device=dev), sim._cost_table)
+    return ctx, st, ln
+
+
+def follow_on_edge_cases(sim, stats, base_st, base_ln, rint,
+                         rbool) -> list:
+    """lane_commit's follow-on windows at full width: windows that run
+    into the end of the trace row or are cut by qend or by a non-PLAIN
+    record, under per-lane post-DVFS frequencies, with models enabled
+    and disabled."""
+    plain_ops = [0, 1, 2, 3, 4, 5, 6, 7, 14, 2, 2, 11, 50, 15]
+    freqs = [1000, 1000, 1000, 333, 2000, 1500]
+    for qend in (2**61, 30_000):
+        for en_post in (True, False):
+            ctx, st, ln = follow_on_state(sim, base_st, base_ln, rint,
+                                          rbool, plain_ops, freqs, qend,
+                                          en_post, 0.6)
+            check_kernel("lane_commit", ctx, st, ln, stats)
+    return ["follow_on_row_end+qend+per_lane_freq"]
+
+
+def follow_on_timing_state(sim):
+    """The state `lane_commit` is timed at beside the FFT's: every lane
+    commits a full window of KX PLAIN records at one frequency, well
+    before qend (the FFT commits none)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(99)
+    dev = sim.device
+
+    def rint(lo, hi, shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=g).to(dtype).to(dev)
+
+    def rbool(p, shape):
+        return (torch.rand(shape, generator=g) < p).to(dev)
+
+    return follow_on_state(sim, sim.state, sim._lanes, rint, rbool,
+                           [0, 1, 2, 3, 4, 5, 6, 7, 14], [1000], 2**61,
+                           True, 0.0)
 
 
 # --- timing and bounds ----------------------------------------------------
@@ -434,19 +618,22 @@ def bound(name, sim, st, ln) -> tuple[float, str, int, int]:
             else (t_ops, "operations", nbytes, ops))
 
 
-def time_kernels(sim, st, ln) -> dict:
-    """Each kernel and its plain version at this state (main-path
-    shapes), on copies, in the step's order."""
+def time_kernels(sim, ctx, st, ln, names=KERNEL_ORDER) -> dict:
+    """Each kernel of `names` and its plain version at this state (main-
+    path shapes), on copies, in the step's order."""
     from graphite_tpu_torch import ops
 
-    ctx = Ctx(sim.params, sim.device_trace, sim_qend(sim), sim._cost_table)
     out = {}
-    for name in KERNEL_ORDER:
+    for name in names:
+        kernel = ops.KERNELS[name]
+        timers = [("ms", name, graph_ms),
+                  ("call_ms", name, lambda f: time_ms(f, 200)),
+                  ("plain_ms", name + "_plain", lambda f: time_ms(f, 20))]
+        if name in BOUND_KERNELS:
+            timers.append(("call_unbound_ms", name,
+                           lambda f: time_ms(unbound(f, kernel), 200)))
         res = {}
-        for impl, fn_name, timer in (
-                ("ms", name, graph_ms),
-                ("call_ms", name, lambda f: time_ms(f, 200)),
-                ("plain_ms", name + "_plain", lambda f: time_ms(f, 20))):
+        for impl, fn_name, timer in timers:
             s2, l2 = st.clone(), ln.clone()
             a, k = unit_args(name, ctx, s2, l2)
             fn = getattr(ops, fn_name)
@@ -458,6 +645,16 @@ def time_kernels(sim, st, ln) -> dict:
         a, k = unit_args(name, ctx, st, ln)
         getattr(ops, name)(*a, **k)
     return out
+
+
+def unbound(fn, kernel):
+    """`fn` with the kernel's binding dropped before every call: each
+    call validates and packs every argument, as every call did before
+    the bound launch path."""
+    def call():
+        kernel.binding = None
+        fn()
+    return call
 
 
 def sim_qend(sim):
@@ -488,23 +685,26 @@ RESULT_FIELDS = (
 
 def phase_kernels(dev, batch, stats) -> dict:
     """Phase 3 at T = 1024: checked iterations of the full-width FFT, the
-    edge cases, and timings at a send-phase state."""
+    edge cases, and timings at a send-phase and a receive-phase state."""
     import torch
 
     sim = make_sim(1024, batch, dev, inner_block=64)
     ctx = Ctx(sim.params, sim.device_trace, sim_qend(sim), sim._cost_table)
     st, ln = sim.state, sim._lanes
     n_checked = 1100            # barrier init + release, sends, receives
-    timing_at = 200
-    timings = None
+    at = {i: phase for phase, i in TIMING_AT.items()}
+    timings = {}
     t0 = time.perf_counter()
     for i in range(n_checked):
-        if i == timing_at:
-            timings = time_kernels(sim, st.clone(), ln.clone())
+        if i in at:
+            timings[at[i]] = time_kernels(sim, ctx, st.clone(), ln.clone())
         checked_iteration(ctx, st, ln, stats)
     torch.cuda.synchronize()
     checked_s = time.perf_counter() - t0
     cases = edge_cases(sim, stats)
+    fctx, fst, fln = follow_on_timing_state(sim)
+    timings["follow_on"] = time_kernels(sim, fctx, fst, fln,
+                                        ("lane_commit",))
     torch.cuda.synchronize()
     return {"iterations_checked": n_checked, "checked_s": checked_s,
             "edge_cases": cases, "timings": timings}
@@ -570,22 +770,40 @@ def trace_instructions(batch) -> int:
 
 
 def phase_full_width(dev, batch) -> dict:
+    """The headline: warmup, then RUNS timed runs from one initial state,
+    each with every launch count set to 0 just before it and read just
+    after; `user_mailbox` and `lane_commit` must launch exactly once per
+    iteration.  Returns the last run's numbers and every run's wall."""
     import torch
 
     from graphite_tpu_torch import ops
 
     sim = make_sim(1024, batch, dev, inner_block=64)
+    # the initial state, kept off the card (not in the peak memory)
+    init = sim.state._map(lambda t: t.to("cpu", copy=True))
     t0 = time.perf_counter()
     sim.warmup()
     warm_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats(dev)
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    r = sim.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    walls = []
+    for _ in range(RUNS):
+        sim.state = init._map(lambda t: t.to(dev, copy=True))
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = sim.run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        iters = sim.last_n_iterations
+        missing = [k for k in KERNEL_ORDER if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"main path never launched {missing}")
+        off = {k: counts[k] for k in BOUND_KERNELS if counts[k] != iters}
+        if off:
+            raise AssertionError(f"{off} launches in {iters} iterations: "
+                                 "expected one a call, one call an "
+                                 "iteration")
     if not bool(sim.state.done.all()):
         raise AssertionError("full width: not every tile is done")
     expect = (trace_instructions(batch) + int(r.recv_instructions.sum())
@@ -593,20 +811,82 @@ def phase_full_width(dev, batch) -> dict:
     if r.total_instructions != expect:
         raise AssertionError(f"full width: {r.total_instructions} "
                              f"instructions, trace implies {expect}")
-    missing = [k for k in KERNEL_ORDER if counts[k] <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
+    med = sorted(walls)[len(walls) // 2]
     return {
-        "tiles": 1024, "points_per_tile": 2048, "wall_s": wall,
+        "tiles": 1024, "points_per_tile": 2048, "runs": RUNS,
+        "wall_s": walls, "wall_s_median": med,
+        "wall_s_min": min(walls), "wall_s_max": max(walls),
         "warmup_s": warm_s,
-        "sim_instr_per_s": r.total_instructions / wall,
+        "sim_instr_per_s_median": r.total_instructions / med,
+        "sim_instr_per_s": [r.total_instructions / w for w in walls],
+        "us_per_iteration_median": med / sim.last_n_iterations * 1e6,
         "total_instructions": r.total_instructions,
         "completion_time_ps": r.completion_time_ps,
         "iterations": sim.last_n_iterations, "n_quanta": r.n_quanta,
         "mailbox_depth": sim.params.mailbox_depth,
         "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
         "launches": counts,
-    }
+    }, sim, init
+
+
+def phase_profile(sim, init, start: int, wall_per_iter_s: float) -> dict:
+    """torch.profiler over one `inner_block` of the headline run, from
+    iteration `start`: kernel device time and launches by name, and the
+    device's busy share of the window's wall time (the profiler slows
+    the host, so the share of the unprofiled run's wall is given too)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from graphite_tpu_torch.engine.step import subquantum_iteration
+
+    sim.state = init._map(lambda t: t.to(sim.device, copy=True))
+    qend = sim_qend(sim)
+    n = sim.params.inner_block
+
+    def block(k):
+        for _ in range(k):
+            subquantum_iteration(sim.params, sim.device_trace, sim.state,
+                                 qend, sim._lanes, sim._cost_table)
+        int(sim._lanes.progress.item())      # the loop's one host read
+
+    block(start)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block(n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.key_averages():
+        # device-side events only (kernels, copies): a host op that
+        # launched one carries its device time too
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = e.self_device_time_total
+        kernels[e.key] = {"launches": e.count, "device_us": dev_us,
+                          "device_us_per_launch": dev_us / e.count}
+    busy_us = sum(k["device_us"] for k in kernels.values())
+    return {"iterations": n, "from_iteration": start, "wall_s": wall,
+            "device_busy_us": busy_us,
+            "busy_share": busy_us * 1e-6 / wall if busy_us else None,
+            "busy_share_of_unprofiled_wall": (
+                busy_us * 1e-6 / (wall_per_iter_s * n) if busy_us else None),
+            "kernels": kernels}
+
+
+def ptxas_summary(logs: dict) -> dict:
+    """Registers, shared memory and spills of each kernel function, from
+    nvcc's -Xptxas=-v output."""
+    out = {}
+    for name, log in logs.items():
+        lines = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
+        out[name] = lines
+    return out
 
 
 def main() -> int:
@@ -628,7 +908,8 @@ def main() -> int:
 
     build_s = build.build_all()
     emit({"phase": "build", "seconds": build_s,
-          "kernels": list(build.KERNEL_NAMES), "card": smi})
+          "kernels": list(build.KERNEL_NAMES), "card": smi,
+          "ptxas": ptxas_summary(build.BUILD_LOGS)})
 
     from graphite_tpu_torch.trace.benchmarks import fft_trace
 
@@ -636,25 +917,43 @@ def main() -> int:
     stats = {k: {"checks": 0, "max_abs_err": 0} for k in KERNEL_ORDER}
     kinfo = phase_kernels(dev, batch, stats)
     for name in KERNEL_ORDER:
-        emit({"phase": "kernel", "name": name, "card": smi,
-              "checks_equal": stats[name]["checks"],
-              "us": kinfo["timings"][name]["ms"] * 1e3,
-              "call_us": kinfo["timings"][name]["call_ms"] * 1e3,
-              "plain_us": kinfo["timings"][name]["plain_ms"] * 1e3,
-              "bound_us": kinfo["timings"][name]["bound_ms"] * 1e3,
-              "bytes": kinfo["timings"][name]["bytes"]})
+        row = {"phase": "kernel", "name": name, "card": smi,
+               "checks_equal": stats[name]["checks"]}
+        for state, tm in kinfo["timings"].items():
+            if name not in tm:
+                continue
+            t = tm[name]
+            row[state] = {
+                "us": t["ms"] * 1e3, "call_us": t["call_ms"] * 1e3,
+                "plain_us": t["plain_ms"] * 1e3,
+                "bound_us": t["bound_ms"] * 1e3, "bytes": t["bytes"]}
+            if "call_unbound_ms" in t:
+                row[state]["call_unbound_us"] = t["call_unbound_ms"] * 1e3
+        emit(row)
     emit({"phase": "kernels_checked", "card": smi,
           "iterations_checked": kinfo["iterations_checked"],
           "checked_s": kinfo["checked_s"],
           "edge_cases": kinfo["edge_cases"]})
 
     phase_end_to_end(dev, smi)
-    full = phase_full_width(dev, batch)
+    full, sim, init = phase_full_width(dev, batch)
     emit({"phase": "full_width", "card": smi, **full})
+    for state, at in TIMING_AT.items():
+        # the inner block of the run that holds the timing state
+        start = at // sim.params.inner_block * sim.params.inner_block
+        prof = phase_profile(sim, init, start,
+                             full["wall_s_median"] / full["iterations"])
+        emit({"phase": "profile", "state": state, "card": smi, **prof})
+        one = {k: v["launches"] for k, v in prof["kernels"].items()
+               if k.startswith("user_mailbox_kernel")}
+        if list(one.values()) != [prof["iterations"]]:
+            raise AssertionError(f"user_mailbox: device launches {one} in "
+                                 f"{prof['iterations']} calls")
 
     rows = []
+    send = kinfo["timings"]["send_phase"]
     for name in KERNEL_ORDER:
-        tm = kinfo["timings"][name]
+        tm = send[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": ops.KERNELS[name].source,

@@ -7,22 +7,36 @@
 // write, the network counters, the progress sum) for the memoryless
 // simple core.  Plain version: graphite_tpu_torch/ops/lane_commit.py.
 //
-// Design: one thread a lane.  The follow-on batch becomes a short serial
-// loop that stops at the first record that is not PLAIN or would start
-// at or past qend — the cumprod of the JAX form.  The predictor write
-// touches only the lane's own (t, pc mod bp_size) cell.  The advanced
-// lanes are counted per block (__syncthreads_count) and added atomically
-// to the device progress counter the loop driver reads once a block of
-// iterations.
+// Design: one thread a lane, in CTAs of THREADS = 64 so that the lanes'
+// loads spread over 16 SMs at T = 1024, with no load behind another that
+// need not be:
+//  - every per-lane input and counter is loaded at the top, so the loads
+//    go out together;
+//  - the follow-on window [i0 + 1, i0 + KX] of the lane's trace row (an
+//    uncoalesced row: the stride is L bytes) comes in as the (at most)
+//    two aligned 16-byte words that cover it, clipped at L, right after
+//    idx; the stop-at-first-non-PLAIN / qend scan (the JAX cumsum +
+//    cumprod) then runs on those bytes in registers.  An aligned word
+//    that holds a byte of the row lies inside the tensor's allocation;
+//    the bytes outside the window are masked;
+//  - a committed follow-on record's cost in ps is its static cost (from
+//    the 160-byte table, which every lane reads through the read-only
+//    cache) divided by the lane's post-DVFS frequency;
+//  - the predictor write touches only the lane's own (t, pc mod bp_size)
+//    cell.  The advanced lanes are counted per block
+//    (__syncthreads_count) and added to the device progress counter the
+//    loop driver reads once a block of iterations; an integer add, so
+//    the order of the atomics cannot change the sum.
 //
 // Bound: bytes.  ~200 B of per-lane inputs and counters read and ~100 B
 // written, plus up to KX = 15 trace bytes: ~300 KB an iteration at
 // T = 1024 (~0.1 us at 3.35 TB/s); launch latency is the floor.
-#include <string.h>
-
 #include "common.cuh"
 
-// Pointer order = graphite_tpu_torch/ops/lane_commit.py `lane_commit`.
+#define THREADS 64
+#define KX_MAX 15       // = graphite_tpu_torch/ops/lane_commit.py MAX_FOLLOW
+
+// Argument block = graphite_tpu_torch/ops/lane_commit.py `_pack`.
 struct CommitArgs {
     const uint8_t* trace_op;
     // lanes
@@ -76,85 +90,139 @@ struct CommitArgs {
     const bool* enabled;
     const int64_t* qend;
     const int64_t* cost_table;
+    int64_t T, L, B, KX;
 };
 
 __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
     return a > b ? a : b;
 }
 
-__global__ void lane_commit_kernel(CommitArgs a, int T, int L, int B,
-                                   int KX) {
+// The KX_MAX bytes at p (clipped to n of them; the rest read OP_NOP),
+// from the at most two aligned 16-byte words that cover them.
+__device__ __forceinline__ void load_window(const uint8_t* p, int n,
+                                            uint8_t (&win)[KX_MAX]) {
+    const uintptr_t addr = (uintptr_t)p;
+    const int off = (int)(addr & 15);
+    const uint4* w = (const uint4*)(addr - off);
+    uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+    if (n > 0) lo = __ldg(w);
+    if (off + n > 16) hi = __ldg(w + 1);
+    const uint32_t x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    // v = x shifted down by off / 4 words (a select, not an indexed read)
+    const int q = off >> 2;
+    uint32_t v[5];
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+        v[j] = q == 0 ? x[j] : q == 1 ? x[j + 1] : q == 2 ? x[j + 2]
+                                                         : x[j + 3];
+    const int sh = (off & 3) * 8;
+    uint32_t u[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) u[j] = __funnelshift_r(v[j], v[j + 1], sh);
+#pragma unroll
+    for (int k = 0; k < KX_MAX; ++k)
+        win[k] = k < n ? (uint8_t)(u[k >> 2] >> ((k & 3) * 8)) : OP_NOP;
+}
+
+__global__ void __launch_bounds__(THREADS)
+lane_commit_kernel(const CommitArgs a) {
+    const int T = (int)a.T, L = (int)a.L, B = (int)a.B, KX = (int)a.KX;
     const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    bool advance = false;
-    if (t < T) {
-        const int op = a.op[t];
-        const bool act = a.active[t];
-        const bool is_branch = op == OP_BRANCH;
-        const bool is_static = op < OP_DYNAMIC_MISC && !is_branch;
-        const bool is_dynamic = op >= OP_DYNAMIC_MISC && op < 20;
-        const bool is_spawn = op == OP_SPAWN;
-        const bool is_send = op == OP_SEND;
-        const bool is_bblock = op == OP_BBLOCK;
-        const bool simple_event =
-            op == OP_THREAD_SPAWN || op == OP_BARRIER_INIT ||
-            op == OP_MUTEX_INIT || op == OP_MUTEX_UNLOCK ||
-            op == OP_ENABLE_MODELS || op == OP_DISABLE_MODELS ||
-            op == OP_DVFS_SET || op == OP_DVFS_GET || op == OP_SYSCALL ||
-            op == OP_COND_INIT;
-        const bool dyn_plain = is_dynamic && !is_spawn;
-        const bool costed = is_static || is_branch || is_bblock ||
-                            dyn_plain || simple_event || is_send;
-        const bool recv_now = a.recv_now[t], released = a.released[t];
-        const bool granted = a.granted[t], join_now = a.join_now[t];
-        const bool bsync = a.bsync_now[t], cjoin = a.cjoin_now[t];
-        advance = (act && costed) || recv_now || released ||
-                  (act && is_spawn) || granted || join_now ||
-                  a.cond_post_commit[t] || a.barrive_now[t] || bsync ||
-                  cjoin || a.pub_now[t];
+    const bool live = t < T;
+    const int u = live ? t : T - 1;        // in bounds; discarded if !live
 
-        const int64_t clock0 = a.clock[t];
-        const int64_t cost = a.cost_ps[t];
-        int64_t c = (advance && costed) ? clock0 + cost : clock0;
-        if (act && is_spawn) c = max64(c, a.dyn_ps[t]);
-        if (recv_now) c = max64(c, a.recv_time[t]);
-        if (released) c = max64(c, a.release_time[t]);
-        const int64_t mutex_wait = a.mutex_wait_ps[t];
-        if (granted) c = c + mutex_wait;
-        if (join_now) c = a.join_time[t];
-        if (bsync) c = max64(c, a.bsync_time[t]);
-        if (cjoin) c = max64(c, a.cjoin_time[t]);
+    // every load first
+    const int op = a.op[u];
+    const bool act = a.active[u];
+    const int32_t flags = a.flags[u], aux0 = a.aux0[u];
+    const int64_t dyn = a.dyn_ps[u], cost = a.cost_ps[u];
+    const int32_t bp_index = a.bp_index[u];
+    const uint8_t bp_pred = a.bp_pred[u];
+    const bool done_new = a.done_new[u];
+    const bool recv_now = a.recv_now[u], released = a.released[u];
+    const bool granted = a.granted[u], join_now = a.join_now[u];
+    const bool bsync = a.bsync_now[u], cjoin = a.cjoin_now[u];
+    const bool others = a.cond_post_commit[u] | a.barrive_now[u] |
+                        a.pub_now[u];
+    const int64_t recv_time = a.recv_time[u];
+    const int32_t recv_lat = a.recv_lat[u];
+    const int64_t release_time = a.release_time[u];
+    const int64_t bsync_time = a.bsync_time[u];
+    const int64_t mutex_wait = a.mutex_wait_ps[u];
+    const int64_t cjoin_time = a.cjoin_time[u], join_time = a.join_time[u];
+    const int32_t fnew = a.freq_new[u];
+    const int64_t clock0 = a.clock[u];
+    const int32_t idx = a.idx[u];
+    const int64_t n_instr = a.instruction_count[u];
+    const int64_t n_exec = a.execution_stall_ps[u];
+    const int64_t n_recv_i = a.recv_instructions[u];
+    const int64_t n_recv_s = a.recv_stall_ps[u];
+    const int64_t n_sync_i = a.sync_instructions[u];
+    const int64_t n_sync_s = a.sync_stall_ps[u];
+    const int64_t n_bp_ok = a.bp_correct[u], n_bp_bad = a.bp_incorrect[u];
+    const int64_t n_sent = a.packets_sent[u];
+    const int64_t n_recvd = a.packets_received[u];
+    const int64_t n_lat = a.total_latency_ps[u];
+    const bool en_post = *a.en_post, en = *a.enabled;
+    const int64_t q = *a.qend;
+    const int i0 = clamp_i32(idx, 0, L - 1);
+    uint8_t win[KX_MAX];
+    load_window(a.trace_op + (size_t)u * L + i0 + 1,
+                min(KX, L - 1 - i0), win);
 
-        // plain-run batching: follow-on PLAIN records at the new freq
-        const int32_t fnew = a.freq_new[t];
-        const bool en_post = *a.en_post;
-        int extra_n = 0;
-        int64_t extra_cost = 0;
-        if (KX > 0 && advance) {
-            const int64_t q = *a.qend;
-            const int i0 = clamp_i32(a.idx[t], 0, L - 1);
-            const uint8_t* row = a.trace_op + (size_t)t * L;
-            for (int k = 1; k <= KX; ++k) {
-                const int pos = i0 + k;
-                if (pos >= L) break;
-                const int o = row[pos];
-                if (o > OP_MFENCE || o == OP_BRANCH) break;
-                if (!(c + extra_cost < q)) break;
-                if (en_post)
-                    extra_cost += ceil_div_i64(a.cost_table[o] * 1000000,
-                                               (int64_t)fnew);
-                ++extra_n;
-            }
+    const bool is_branch = op == OP_BRANCH;
+    const bool is_static = op < OP_DYNAMIC_MISC && !is_branch;
+    const bool is_dynamic = op >= OP_DYNAMIC_MISC && op < 20;
+    const bool is_spawn = op == OP_SPAWN;
+    const bool is_send = op == OP_SEND;
+    const bool is_bblock = op == OP_BBLOCK;
+    const bool simple_event =
+        op == OP_THREAD_SPAWN || op == OP_BARRIER_INIT ||
+        op == OP_MUTEX_INIT || op == OP_MUTEX_UNLOCK ||
+        op == OP_ENABLE_MODELS || op == OP_DISABLE_MODELS ||
+        op == OP_DVFS_SET || op == OP_DVFS_GET || op == OP_SYSCALL ||
+        op == OP_COND_INIT;
+    const bool dyn_plain = is_dynamic && !is_spawn;
+    const bool costed = is_static || is_branch || is_bblock || dyn_plain ||
+                        simple_event || is_send;
+    const bool advance = live &&
+        ((act && costed) || recv_now || released || (act && is_spawn) ||
+         granted || join_now || others || bsync || cjoin);
+
+    int64_t c = (advance && costed) ? clock0 + cost : clock0;
+    if (act && is_spawn) c = max64(c, dyn);
+    if (recv_now) c = max64(c, recv_time);
+    if (released) c = max64(c, release_time);
+    if (granted) c = c + mutex_wait;
+    if (join_now) c = join_time;
+    if (bsync) c = max64(c, bsync_time);
+    if (cjoin) c = max64(c, cjoin_time);
+
+    // plain-run batching over the window, at the post-DVFS frequency:
+    // commit while every record so far is PLAIN (a static non-branch op)
+    // and starts before qend
+    int extra_n = 0;
+    int64_t extra_cost = 0;
+    bool run = advance;
+#pragma unroll
+    for (int k = 0; k < KX_MAX; ++k) {
+        const int o = win[k];
+        run = run && o <= OP_MFENCE && o != OP_BRANCH && c + extra_cost < q;
+        if (run) {
+            if (en_post)
+                extra_cost += ceil_div_i64(__ldg(a.cost_table + o) * 1000000,
+                                           (int64_t)fnew);
+            ++extra_n;
         }
+    }
 
-        const bool en = *a.enabled;
-        const int64_t recv_wait =
-            recv_now ? max64(a.recv_time[t] - clock0, 0) : 0;
+    if (live) {
+        const int64_t recv_wait = recv_now ? max64(recv_time - clock0, 0)
+                                           : 0;
         const int64_t barrier_wait =
-            released ? max64(a.release_time[t] - clock0, 0) : 0;
-        const int64_t bsync_wait =
-            bsync ? max64(a.bsync_time[t] - clock0, 0) : 0;
-        const int64_t cjoin_wait =
-            cjoin ? max64(a.cjoin_time[t] - clock0, 0) : 0;
+            released ? max64(release_time - clock0, 0) : 0;
+        const int64_t bsync_wait = bsync ? max64(bsync_time - clock0, 0) : 0;
+        const int64_t cjoin_wait = cjoin ? max64(cjoin_time - clock0, 0) : 0;
         const bool instr_now =
             advance && (is_static || is_branch || dyn_plain);
         const bool recv_charged = recv_now && recv_wait > 0 && en;
@@ -164,45 +232,44 @@ __global__ void lane_commit_kernel(CommitArgs a, int T, int L, int B,
 
         a.clock[t] = c + extra_cost;
         a.freq[t] = fnew;
-        a.idx[t] = wrap_add(a.idx[t], (advance ? 1 : 0) + extra_n);
-        a.instruction_count[t] +=
-            (int64_t)(instr_now && en) + (en_post ? extra_n : 0) +
-            ((advance && is_bblock && en) ? (int64_t)a.aux0[t] : 0) +
+        a.idx[t] = wrap_add(idx, (advance ? 1 : 0) + extra_n);
+        a.instruction_count[t] =
+            n_instr + (int64_t)(instr_now && en) + (en_post ? extra_n : 0) +
+            ((advance && is_bblock && en) ? (int64_t)aux0 : 0) +
             (int64_t)recv_charged + (int64_t)sync_charged;
-        a.execution_stall_ps[t] +=
-            extra_cost +
+        a.execution_stall_ps[t] =
+            n_exec + extra_cost +
             ((advance && (is_static || is_branch || is_bblock)) ? cost : 0);
-        a.recv_instructions[t] += (int64_t)recv_charged;
-        a.recv_stall_ps[t] += recv_charged ? recv_wait : 0;
-        a.sync_instructions[t] += (int64_t)sync_charged;
-        a.sync_stall_ps[t] += ((released && en) ? barrier_wait : 0) +
-                              ((granted && en) ? mutex_wait : 0) +
-                              (en ? bsync_wait + cjoin_wait : 0);
+        a.recv_instructions[t] = n_recv_i + (int64_t)recv_charged;
+        a.recv_stall_ps[t] = n_recv_s + (recv_charged ? recv_wait : 0);
+        a.sync_instructions[t] = n_sync_i + (int64_t)sync_charged;
+        a.sync_stall_ps[t] = n_sync_s +
+                             ((released && en) ? barrier_wait : 0) +
+                             ((granted && en) ? mutex_wait : 0) +
+                             (en ? bsync_wait + cjoin_wait : 0);
         if (act && is_branch && en) {
-            const uint8_t taken = (a.flags[t] & FLAG_BRANCH_TAKEN) ? 1 : 0;
-            a.bp_bits[(size_t)t * B + a.bp_index[t]] = taken;
-            if (a.bp_pred[t] == taken)
-                a.bp_correct[t] += 1;
+            const uint8_t taken = (flags & FLAG_BRANCH_TAKEN) ? 1 : 0;
+            a.bp_bits[(size_t)t * B + bp_index] = taken;
+            if (bp_pred == taken)
+                a.bp_correct[t] = n_bp_ok + 1;
             else
-                a.bp_incorrect[t] += 1;
+                a.bp_incorrect[t] = n_bp_bad + 1;
         }
-        a.packets_sent[t] += (int64_t)(act && is_send);
-        a.packets_received[t] += (int64_t)recv_now;
-        a.total_latency_ps[t] += recv_now ? (int64_t)a.recv_lat[t] : 0;
-        a.done[t] = a.done_new[t];
+        a.packets_sent[t] = n_sent + (int64_t)(act && is_send);
+        a.packets_received[t] = n_recvd + (int64_t)recv_now;
+        a.total_latency_ps[t] = n_lat + (recv_now ? (int64_t)recv_lat : 0);
+        a.done[t] = done_new;
     }
     const int n = __syncthreads_count(advance);
     if (threadIdx.x == 0 && n > 0) atomicAdd(a.progress, n);
 }
 
-extern "C" int gt_lane_commit(void* const* ptrs, int T, int L, int B,
-                              int KX, cudaStream_t stream) {
-    static_assert(sizeof(CommitArgs) == 48 * sizeof(void*),
-                  "CommitArgs must be 48 pointers");
-    CommitArgs a;
-    memcpy(&a, ptrs, sizeof(a));
-    const int threads = 256;
-    lane_commit_kernel<<<(T + threads - 1) / threads, threads, 0, stream>>>(
-        a, T, L, B, KX);
+extern "C" int gt_lane_commit(const CommitArgs* args,
+                              cudaStream_t stream) {
+    static_assert(sizeof(CommitArgs) == 52 * 8,
+                  "CommitArgs: 48 pointers and 4 int64");
+    const int T = (int)args->T;
+    lane_commit_kernel<<<(T + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+        *args);
     return (int)cudaGetLastError();
 }

@@ -8,23 +8,47 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
 
 The build happens at first use, into `graphite_tpu_torch/_build/` (listed
 in `.gitignore`); every source is compiled by its own `nvcc` process, all
-started together.  The library name carries a hash of the sources, so an
-edited kernel is never served from a stale build.  Nothing here runs at
-import time, and nothing here runs on the CPU path: the wrappers in
-`ops/` reach `Kernel.launch` only for CUDA tensors.
+started together, with `-Xptxas=-v` so that `BUILD_LOGS` keeps each
+kernel's registers, shared memory and spills.  The library name carries a
+hash of the sources, so an edited kernel is never served from a stale
+build.  Nothing here runs at import time, and nothing here runs on the
+CPU path: the wrappers in `ops/` reach a launch only for CUDA tensors.
 
-Each `Kernel` keeps an integer `launches` count, which its `launch`
-increments once per kernel launch and nowhere else.
+Each `Kernel` keeps an integer `launches` count, which `launch` and
+`launch_bound` increment once per call of its C entry point and nowhere
+else.  Every entry point launches exactly one kernel, so the count is
+the number of kernel launches.
+
+Bound launch path (`Kernel.launch_bound`).  Validating and packing every
+argument on every call costs tens of microseconds of Python, several
+times a kernel's device time.  A bound kernel validates a set of tensors
+once (device, dtype, shape, contiguity) and packs their pointers and its
+plain values into one argument block; while later calls pass the very
+same tensor objects and the same plain values, a launch is one ctypes
+call with that block.  The binding holds a weak reference to each
+tensor and checks on every call that each one still resolves to the
+tensor passed (`ref() is t`): a tensor that was freed resolves to None,
+so its pointer is never used again, and an object id reused for another
+tensor never matches.  The binding keeps nothing alive, so a replaced
+state (`Simulator.warmup`'s clone, a new `qend`) is freed as usual, and
+the next call validates and binds anew.  (A tensor freed while its
+kernel still runs is safe as for any PyTorch op: the launch is on
+PyTorch's current stream, whose order the caching allocator keeps.)
+Each kernel keeps only its newest binding.  The port never re-points a
+bound tensor in place (`set_`, `resize_`), which an identity check
+could not see.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import subprocess
 import threading
 import time
+import weakref
 
 import torch
 
@@ -32,12 +56,14 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNEL_NAMES = ("lane_fetch_cost", "user_mailbox", "barrier_sync",
                 "lane_commit")
 
 _lock = threading.Lock()
 _libs: dict = {}
+# kernel name -> nvcc's output of its last build in this process
+BUILD_LOGS: dict = {}
 
 
 def _source_hash(name: str) -> str:
@@ -81,10 +107,10 @@ def build_all(names=KERNEL_NAMES) -> float:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
     for n, out, tmp, p in procs:
-        log, _ = p.communicate()
+        log = p.communicate()[0].decode(errors="replace")
+        BUILD_LOGS[n] = log
         if p.returncode != 0:
-            errors.append(f"{n}: nvcc exit {p.returncode}\n"
-                          f"{log.decode(errors='replace')}")
+            errors.append(f"{n}: nvcc exit {p.returncode}\n{log}")
             continue
         os.replace(tmp, out)
     if errors:
@@ -109,17 +135,43 @@ I32 = ctypes.c_int
 I64 = ctypes.c_longlong
 
 
+class Binding:
+    """One validated argument set of a kernel: weak references to its
+    tensors (see the module doc), the plain values `key`, and the packed
+    argument block whose address the C entry point reads."""
+
+    __slots__ = ("refs", "key", "block", "address", "device")
+
+    def __init__(self, tensors: tuple, key: tuple, block):
+        self.refs = tuple(map(weakref.ref, tensors))
+        self.key, self.block = key, block
+        self.address = ctypes.addressof(block)
+        self.device = tensors[0].device
+
+    def holds(self, tensors: tuple, key: tuple) -> bool:
+        """Whether these very (live) tensor objects and values are the
+        ones bound."""
+        return self.key == key and all(map(
+            operator.is_, map(operator.call, self.refs), tensors))
+
+
 class Kernel:
     """One CUDA entry point: `launch(*args)` calls `symbol(*args, stream)`
     on PyTorch's current stream, raises on a non-zero launch status, and
-    counts the launch."""
+    counts the launch.  A kernel made with `pack` is a bound kernel: its
+    entry point takes `(args block, stream)` and its wrapper calls
+    `launch_bound`; `pack(tensors, key)` validates the arguments and
+    returns the block (a ctypes array)."""
 
-    def __init__(self, name: str, symbol: str, argtypes: tuple):
+    def __init__(self, name: str, symbol: str, argtypes: tuple = (P,),
+                 pack=None):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
+        self.pack = pack
         self.source = f"graphite_tpu_torch/csrc/{name}.cu"
         self.launches = 0
+        self.binding = None
         self._fn = None
 
     def _bind(self):
@@ -131,13 +183,42 @@ class Kernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
+    def _raise(self, rc: int) -> None:
+        msg = self._lib.gt_error_string(rc).decode()
+        raise RuntimeError(f"{self.name}: launch failed: {msg} ({rc})")
+
     def launch(self, *args) -> None:
         fn = self._bind()
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*args, stream)
         if rc != 0:
-            msg = self._lib.gt_error_string(rc).decode()
-            raise RuntimeError(f"{self.name}: launch failed: {msg} ({rc})")
+            self._raise(rc)
+        self.launches += 1
+
+    def bind(self, tensors: tuple, key: tuple) -> Binding:
+        """The binding of `tensors` and `key`: the kernel's current one
+        when it holds these very objects and values, else a new one that
+        replaces it (validated by `pack`, which raises on a bad
+        argument).  Launches nothing."""
+        b = self.binding
+        if b is not None and b.holds(tensors, key):
+            return b
+        self.binding = None          # never hold two argument sets
+        b = Binding(tensors, key, self.pack(tensors, key))
+        self.binding = b
+        return b
+
+    def launch_bound(self, tensors: tuple, key: tuple) -> None:
+        b = self.bind(tensors, key)
+        if b.device.type != "cuda":
+            raise ValueError(f"{self.name}: tensors on {b.device}")
+        fn = self._fn or self._bind()
+        # the current stream's raw handle, without building the Stream
+        # object torch.cuda.current_stream() returns (several us a call)
+        stream = torch._C._cuda_getCurrentRawStream(b.device.index)
+        rc = fn(b.address, stream)
+        if rc != 0:
+            self._raise(rc)
         self.launches += 1
 
 
@@ -155,3 +236,16 @@ def check(t: torch.Tensor, name: str, dtype, shape, device) -> int:
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
     return t.data_ptr()
+
+
+def pack_args(tensors: tuple, specs, values=()) -> ctypes.Array:
+    """Validate `tensors` against `specs` ((name, dtype, shape) each, all
+    on the first tensor's device) and pack their pointers, then the
+    integers `values`, into one block of int64 words."""
+    if len(tensors) != len(specs):
+        raise ValueError(f"{len(tensors)} tensors for {len(specs)} "
+                         "arguments")
+    dev = tensors[0].device if isinstance(tensors[0], torch.Tensor) else None
+    words = [check(t, *spec, dev) for t, spec in zip(tensors, specs)]
+    words += [int(v) for v in values]
+    return (ctypes.c_int64 * len(words))(*words)

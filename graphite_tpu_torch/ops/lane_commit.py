@@ -3,7 +3,9 @@
 Replaces the commit of the JAX step (`graphite_tpu/engine/step.py:842-915`
 and `:1098-1140` for the memoryless simple core), plain-run batching
 (`:999-1066`) and the progress sum (`:1204`).  Kernel:
-`csrc/lane_commit.cu`, one thread a lane.
+`csrc/lane_commit.cu`, one thread a lane, launched through a binding
+(`build.Kernel.launch_bound`): its 48 tensor arguments are validated once
+per set of tensors, not on every call.
 
 Per lane: the `advance` mask over every unit's outputs; the clock's
 max/where chain; `idx` += advance + follow-ons; the nine counters; the
@@ -15,19 +17,17 @@ qend; `done` latched; and the advanced-lane count added to `progress`.
 
 from __future__ import annotations
 
-import ctypes
+from operator import attrgetter
 
 import torch
 
 from graphite_tpu_torch.engine.state import CoreState, Lanes, UserNetState
 from graphite_tpu_torch.intmath import nn_ceil_div
-from graphite_tpu_torch.ops.build import I32, P, Kernel, check
+from graphite_tpu_torch.ops.build import Kernel, pack_args
 from graphite_tpu_torch.trace.schema import FLAG_BRANCH_TAKEN, Op
 
-KERNEL = Kernel("lane_commit", "gt_lane_commit", (P, I32, I32, I32, I32))
-
-# Pointer order of the kernel's `CommitArgs` struct (csrc/lane_commit.cu):
-# (owner, field, dtype, per-lane shape or None for a scalar/odd shape)
+# (field, dtype) of the per-lane arguments, in the pointer order of the
+# kernel's `CommitArgs` struct (csrc/lane_commit.cu)
 _LANE_IN = (
     ("op", torch.int32), ("flags", torch.int32), ("aux0", torch.int32),
     ("dyn_ps", torch.int64), ("bp_index", torch.int32),
@@ -52,6 +52,38 @@ _CORE = (
 )
 _NET = (("packets_sent", torch.int64), ("packets_received", torch.int64),
         ("total_latency_ps", torch.int64))
+
+# the longest follow-on window the kernel holds in registers (KX_MAX)
+MAX_FOLLOW = 15
+_lane_get = attrgetter(*(n for n, _ in _LANE_IN))
+_core_get = attrgetter(*(n for n, _ in _CORE))
+_net_get = attrgetter(*(n for n, _ in _NET))
+_BP_BITS = 1 + len(_LANE_IN) + 3 + len(_CORE)   # its place in the args
+
+
+def _pack(tensors: tuple, key: tuple):
+    """Validate and pack one argument set (`CommitArgs` in
+    csrc/lane_commit.cu: the 48 pointers, then T, L, B and KX)."""
+    (n_follow,) = key
+    if not 0 <= n_follow <= MAX_FOLLOW:
+        raise ValueError(f"lane_commit: n_follow {n_follow} outside "
+                         f"[0, {MAX_FOLLOW}]")
+    T, L = tensors[0].shape
+    B = tensors[_BP_BITS].shape[1]
+    t = (T,)
+    specs = [("trace.op", torch.uint8, (T, L))]
+    specs += [(f"lanes.{n}", dt, t) for n, dt in _LANE_IN]
+    specs += [("freq_new", torch.int32, t), ("en_post", torch.bool, ()),
+              ("lanes.progress", torch.int32, (1,))]
+    specs += [(f"core.{n}", dt, t) for n, dt in _CORE]
+    specs += [("core.bp_bits", torch.uint8, (T, B))]
+    specs += [(f"net.{n}", dt, t) for n, dt in _NET]
+    specs += [("done", torch.bool, t), ("enabled", torch.bool, ()),
+              ("qend", torch.int64, ()), ("cost_table", torch.int64, (20,))]
+    return pack_args(tensors, specs, (T, L, B, n_follow))
+
+
+KERNEL = Kernel("lane_commit", "gt_lane_commit", pack=_pack)
 
 
 def lane_commit_plain(trace_op: torch.Tensor, lanes: Lanes,
@@ -194,24 +226,14 @@ def lane_commit(trace_op: torch.Tensor, lanes: Lanes,
         return
     if done.device.type != "cuda":
         raise ValueError(f"lane_commit: unsupported device {done.device}")
-    dev = done.device
-    T, L = trace_op.shape
-    B = core.bp_bits.shape[1]
-    ptrs = [check(trace_op, "trace.op", torch.uint8, (T, L), dev)]
-    ptrs += [check(getattr(lanes, n), f"lanes.{n}", dt, (T,), dev)
-             for n, dt in _LANE_IN]
-    ptrs += [check(freq_new, "freq_new", torch.int32, (T,), dev),
-             check(en_post, "en_post", torch.bool, (), dev),
-             check(lanes.progress, "lanes.progress", torch.int32, (1,),
-                   dev)]
-    ptrs += [check(getattr(core, n), f"core.{n}", dt, (T,), dev)
-             for n, dt in _CORE]
-    ptrs += [check(core.bp_bits, "core.bp_bits", torch.uint8, (T, B), dev)]
-    ptrs += [check(getattr(net, n), f"net.{n}", dt, (T,), dev)
-             for n, dt in _NET]
-    ptrs += [check(done, "done", torch.bool, (T,), dev),
-             check(enabled, "enabled", torch.bool, (), dev),
-             check(qend, "qend", torch.int64, (), dev),
-             check(cost_table, "cost_table", torch.int64, (20,), dev)]
-    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    KERNEL.launch(arr, T, L, B, int(n_follow))
+    KERNEL.launch_bound(*bound_args(trace_op, lanes, freq_new, en_post,
+                                    core, net, done, enabled, qend,
+                                    cost_table, n_follow))
+
+
+def bound_args(trace_op, lanes, freq_new, en_post, core, net, done,
+               enabled, qend, cost_table, n_follow) -> tuple:
+    """The (tensors, key) a call binds, in `CommitArgs` order."""
+    return ((trace_op, *_lane_get(lanes), freq_new, en_post, lanes.progress,
+             *_core_get(core), core.bp_bits, *_net_get(net), done, enabled,
+             qend, cost_table), (int(n_follow),))

@@ -3,9 +3,13 @@
 Replaces `_net_block` (`graphite_tpu/engine/step.py:413-502`) with the
 emesh_hop_counter / magic `route_latency_ps`
 (`graphite_tpu/models/network_user.py:96-116`).  Kernel:
-`csrc/user_mailbox.cu`, two launches per call — every send must land
-before any receive reads the rings (receives match against the POST-send
-arrays, `step.py:454-457`).
+`csrc/user_mailbox.cu`, one launch per call: each send is applied by
+exactly one thread — the receiver's, when its receive reads the cell the
+send writes, else the sender's — so every receive matches against the
+POST-send arrays (`step.py:454-457`) with no grid-wide barrier and no
+atomics.  The wrapper launches through a binding
+(`build.Kernel.launch_bound`): its arguments are validated once per set
+of tensors, not on every call.
 
 Semantics (both versions, updating the rings in place):
  - send (lane t, active SEND to dst = clip(aux0)): slot = head[dst, t]
@@ -28,13 +32,37 @@ from graphite_tpu_torch.engine.state import FAR_FUTURE_PS, Lanes, UserNetState
 from graphite_tpu_torch.models.network_user import (
     UserNetworkParams, route_latency_ps,
 )
-from graphite_tpu_torch.ops.build import I32, P, Kernel, check
+from graphite_tpu_torch.ops.build import Kernel, pack_args
 from graphite_tpu_torch.trace.schema import Op
 
 ANY_SENDER = -1
 KIND_MAGIC, KIND_EMESH = 0, 1
 
-KERNEL = Kernel("user_mailbox", "gt_user_mailbox", (P,) * 14 + (I32,) * 7)
+_ARGS = ("op", "aux0", "aux1", "active", "clock_ps", "time_ps", "lat_ps",
+         "head", "count", "overflow", "recv_now", "recv_time", "recv_lat",
+         "enabled")
+
+
+def _pack(tensors: tuple, key: tuple):
+    """Validate and pack one argument set (`MailboxArgs` in
+    csrc/user_mailbox.cu: the 14 pointers, then T, D and the network)."""
+    (net_params,) = key
+    emesh = net_params.kind == "emesh_hop_counter"
+    if not emesh and net_params.kind != "magic":
+        raise NotImplementedError(f"user_mailbox: network {net_params.kind}")
+    T, D, _ = tensors[5].shape
+    i32, i64, b = torch.int32, torch.int64, torch.bool
+    shapes = ((i32, (T,)), (i32, (T,)), (i32, (T,)), (b, (T,)), (i64, (T,)),
+              (i64, (T, D, T)), (i32, (T, D, T)), (i32, (T, T)),
+              (i32, (T, T)), (b, ()), (b, (T,)), (i64, (T,)), (i32, (T,)),
+              (b, ()))
+    return pack_args(tensors, [(n, *s) for n, s in zip(_ARGS, shapes)], (
+        T, D, KIND_EMESH if emesh else KIND_MAGIC, net_params.freq_mhz,
+        net_params.mesh_width, net_params.hop_latency_cycles,
+        net_params.flit_width_bits))
+
+
+KERNEL = Kernel("user_mailbox", "gt_user_mailbox", pack=_pack)
 
 
 def user_mailbox_plain(net_params: UserNetworkParams, lanes: Lanes,
@@ -91,30 +119,15 @@ def user_mailbox(net_params: UserNetworkParams, lanes: Lanes,
         return
     if clock.device.type != "cuda":
         raise ValueError(f"user_mailbox: unsupported device {clock.device}")
-    dev = clock.device
-    T, D, _ = net.time_ps.shape
-    i32, i64, b = torch.int32, torch.int64, torch.bool
-    emesh = net_params.kind == "emesh_hop_counter"
-    if not emesh and net_params.kind != "magic":
-        raise NotImplementedError(f"user_mailbox: network {net_params.kind}")
-    args = [
-        check(lanes.op, "lanes.op", i32, (T,), dev),
-        check(lanes.aux0, "lanes.aux0", i32, (T,), dev),
-        check(lanes.aux1, "lanes.aux1", i32, (T,), dev),
-        check(lanes.active, "lanes.active", b, (T,), dev),
-        check(clock, "clock_ps", i64, (T,), dev),
-        check(net.time_ps, "net.time_ps", i64, (T, D, T), dev),
-        check(net.lat_ps, "net.lat_ps", i32, (T, D, T), dev),
-        check(net.head, "net.head", i32, (T, T), dev),
-        check(net.count, "net.count", i32, (T, T), dev),
-        check(net.overflow, "net.overflow", b, (), dev),
-        check(lanes.recv_now, "lanes.recv_now", b, (T,), dev),
-        check(lanes.recv_time, "lanes.recv_time", i64, (T,), dev),
-        check(lanes.recv_lat, "lanes.recv_lat", i32, (T,), dev),
-        check(enabled, "enabled", b, (), dev),
-        T, D,
-        KIND_EMESH if emesh else KIND_MAGIC, int(net_params.freq_mhz),
-        int(net_params.mesh_width), int(net_params.hop_latency_cycles),
-        int(net_params.flit_width_bits),
-    ]
-    KERNEL.launch(*args)
+    KERNEL.launch_bound(*bound_args(net_params, lanes, clock, enabled,
+                                    net))
+
+
+def bound_args(net_params: UserNetworkParams, lanes: Lanes,
+               clock: torch.Tensor, enabled: torch.Tensor,
+               net: UserNetState) -> tuple:
+    """The (tensors, key) a call binds, in `MailboxArgs` order."""
+    return ((lanes.op, lanes.aux0, lanes.aux1, lanes.active, clock,
+             net.time_ps, net.lat_ps, net.head, net.count, net.overflow,
+             lanes.recv_now, lanes.recv_time, lanes.recv_lat, enabled),
+            (net_params,))
