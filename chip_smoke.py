@@ -16,16 +16,22 @@ Phases, one JSON line each:
     FFT run, and on hand-made edge cases (ANY_SENDER ties, a full ring,
     every lane an ANY_SENDER receiver, all-to-one sends with a named or
     ANY_SENDER receive of a same-iteration send, self-sends, overflow and
-    pop in one iteration, barrier-init races, split barriers, follow-on
-    windows cut by the row's end and by qend under per-lane frequencies);
-    then, at the main path's shapes and at two states of the FFT (the
-    send phase, iteration 200, and the receive phase, iteration 1060),
-    each kernel's device time per call (a CUDA graph of 100 calls, host
-    overhead excluded), its time per eager call (host included; for the
-    two bound kernels also with the binding dropped before every call,
-    i.e. validating every argument each call) and its plain version's
-    time; and `lane_commit` alone at a follow-on state (every lane at a
-    PLAIN record with a window of PLAIN records behind it, one
+    pop in one iteration; barrier-init races with negative counts, 1024
+    lanes arriving at one barrier, several releases in one iteration, a
+    split barrier across the generation ring's wrap, 1 and 1024
+    barriers, lane counts that are not a multiple of the block, idle
+    tables and a barrier already due; fetches at both ends of the row
+    with predictors of 1024 and 1000 entries; follow-on windows cut by
+    the row's end and by qend under per-lane frequencies); then, at the
+    main path's shapes and at three states of the FFT (the send phase,
+    iteration 200; the receive phase, iteration 1060; the barrier phase,
+    the first iteration at which at least half the lanes are active at
+    BARRIER_WAIT, found while checking), each kernel's device time per
+    call (a CUDA graph of 100 calls, host overhead excluded), its time
+    per eager call (host included; also with the binding dropped before
+    every call, i.e. validating every argument each call) and its plain
+    version's time; and `lane_commit` alone at a follow-on state (every
+    lane at a PLAIN record with a window of PLAIN records behind it, one
     frequency), which the FFT never reaches;
  4. end to end: the FFT at 64 and 256 tiles and the message ring at 64
     tiles on the card and on the CPU (plain path): every SimResults
@@ -33,12 +39,12 @@ Phases, one JSON line each:
  5. full width: the headline config (1024 tiles, SPLASH-2 FFT with 2048
     points a tile, emesh_hop_counter, lax) through Simulator.warmup() and
     RUNS timed .run()s from the same initial state; every tile done, the
-    instruction total checked against the trace, each kernel's launch
-    count on each run above zero, and `user_mailbox` and `lane_commit`
-    launched exactly once per iteration; then torch.profiler windows
-    over one `inner_block` of the same run at each of the two timing
-    states: kernel device time and launches by name (`user_mailbox`:
-    one device launch a call), and the device's busy share.
+    instruction total checked against the trace, and on each run every
+    kernel launched exactly once per iteration and packed (validated
+    its arguments) at most once; then torch.profiler windows over one
+    `inner_block` of the same run at each of the three timing states:
+    kernel device time and launches by name (one device launch a call
+    for every kernel), and the device's busy share.
 
 Then the kernels line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero before the
@@ -65,7 +71,6 @@ REPLACES = {
     "lane_commit": "graphite_tpu/engine/step.py:842",
 }
 KERNEL_ORDER = tuple(REPLACES)
-BOUND_KERNELS = ("user_mailbox", "lane_commit")
 TIMING_AT = {"send_phase": 200, "receive_phase": 1060}
 RUNS = 5
 
@@ -300,30 +305,40 @@ def edge_cases(sim, stats) -> list:
         check_kernel("barrier_sync", ctx, st, ln, stats)
     names.append("barrier_init_races+split_forms")
 
-    # 3. fetch/cost over every op class, idx past the end, odd freqs
-    st, ln = base_st.clone(), base_ln.clone()
+    # 3. fetch/cost over every op class, idx at both ends of the row and
+    # past it, per-lane frequencies, predictors of 1024 and 1000 entries
+    # (mask and remainder), models enabled and disabled, the predictor on
+    # and off
     L = sim.device_trace.length
     trace = dataclasses.replace(sim.device_trace)
     ops_pool = torch.tensor(
-        [0, 1, 2, 3, 5, 6, 11, 11, 14, 15, 16, 18, 19, 32, 33, 45, 48, 49,
-         50, 51, 255], dtype=torch.uint8, device=dev)
+        [0, 1, 2, 3, 5, 6, 11, 11, 14, 15, 16, 18, 19, 20, 31, 32, 33, 45,
+         48, 49, 50, 51, 52, 255], dtype=torch.uint8, device=dev)
     trace.op = ops_pool[rint(0, len(ops_pool), (T, L))].contiguous()
     trace.flags = rint(0, 256, (T, L), torch.uint8)
     trace.pc = rint(0, 2**32, (T, L))
     trace.aux1 = rint(-5, 100_000, (T, L), torch.int32)
     trace.dyn_ps = rint(0, 10**9, (T, L))
-    ctx3 = Ctx(sim.params, trace, torch.tensor(
-        50_000, dtype=torch.int64, device=dev), sim._cost_table)
-    for enabled in (True, False):
-        st.core.idx.copy_(rint(0, L + 5, (T,), torch.int32))
+    ends = torch.tensor([0, 1, L - 2, L - 1, L, L + 5, -3],
+                        dtype=torch.int32, device=dev)
+    for bp_size, bp_on, enabled in ((1024, True, True), (1000, True, True),
+                                    (1000, False, False),
+                                    (1024, True, False)):
+        st, ln = base_st.clone(), base_ln.clone()
+        st.core.bp_bits = rint(0, 2, (T, bp_size), torch.uint8)
+        st.core.idx.copy_(torch.where(
+            rbool(0.5, (T,)), ends[rint(0, len(ends), (T,))],
+            rint(0, L, (T,), torch.int32)).to(torch.int32))
         st.core.clock_ps.copy_(rint(0, 100_000, (T,)))
         st.core.freq_mhz.copy_(rint(300, 2001, (T,), torch.int32))
-        st.core.bp_bits.copy_(rint(0, 2, st.core.bp_bits.shape,
-                                   torch.uint8))
         st.done.copy_(rbool(0.1, (T,)))
         st.models_enabled.fill_(enabled)
+        ctx3 = Ctx(dataclasses.replace(sim.params, bp_size=bp_size,
+                                       bp_enabled=bp_on),
+                   trace, torch.tensor(50_000, dtype=torch.int64,
+                                       device=dev), sim._cost_table)
         check_kernel("lane_fetch_cost", ctx3, st, ln, stats)
-    names.append("fetch_cost_all_op_classes")
+    names.append("fetch_cost_all_op_classes+row_ends+bp_1024_1000")
 
     # 4. commit: random unit outputs, plain-run batching cut by qend
     plain_ops = torch.tensor([0, 1, 2, 3, 4, 5, 6, 14, 11, 45, 50],
@@ -367,6 +382,7 @@ def edge_cases(sim, stats) -> list:
 
     names += mailbox_edge_cases(sim, stats, base_st, base_ln, ctx, rint,
                                 rbool)
+    names += barrier_edge_cases(dev, stats, rint, rbool)
     names += follow_on_edge_cases(sim, stats, base_st, base_ln, rint,
                                   rbool)
     return names
@@ -457,6 +473,160 @@ def mailbox_edge_cases(sim, stats, base_st, base_ln, ctx, rint,
     if not bool(st.net.overflow):
         raise AssertionError("edge case: overflow+pop did not overflow")
     names.append("overflow_and_pop")
+    return names
+
+
+@dataclasses.dataclass
+class BarrierTables:
+    """The barrier part of a SyncState (what `barrier_sync` reads)."""
+
+    barrier_count: object
+    barrier_arrived: object
+    barrier_time_ps: object
+    barrier_waiting: object
+    barrier_gen: object
+    barrier_release_ps: object
+
+
+@dataclasses.dataclass
+class BarrierCall:
+    lanes: object
+    clock: object
+    sync: object
+
+    def clone(self):
+        tables = (getattr(self.sync, f.name).clone()
+                  for f in dataclasses.fields(self.sync))
+        return BarrierCall(self.lanes.clone(), self.clock.clone(),
+                           BarrierTables(*tables))
+
+
+def check_barrier(call, stats) -> "BarrierCall":
+    """`barrier_sync` on `call` against its plain version on a copy;
+    returns the kernel's result."""
+    from graphite_tpu_torch import ops
+
+    ref = call.clone()
+    ops.barrier_sync_plain(ref.lanes, ref.clock, ref.sync)
+    ops.barrier_sync(call.lanes, call.clock, call.sync)
+    err = max_abs_err(call, ref, "barrier_sync")
+    stats["barrier_sync"]["checks"] += 1
+    stats["barrier_sync"]["max_abs_err"] = max(
+        stats["barrier_sync"]["max_abs_err"], err)
+    if err:
+        raise AssertionError(f"barrier_sync: kernel != plain version "
+                             f"(max abs err {err})")
+    return call
+
+
+def barrier_edge_cases(dev, stats, rint, rbool) -> list:
+    """`barrier_sync`'s corners, each on its own lanes and tables: the
+    lane count T and the barrier count NB vary, so the kernel's stride
+    loops, partial warps and table sizes are all reached."""
+    import torch
+
+    from graphite_tpu_torch.engine.state import GEN_RING, Lanes
+    from graphite_tpu_torch.ops.barrier_sync import MAX_BARRIERS
+    from graphite_tpu_torch.trace.schema import Op
+
+    i32 = torch.int32
+    INIT, WAIT = int(Op.BARRIER_INIT), int(Op.BARRIER_WAIT)
+    ARRIVE, SYNC = int(Op.BARRIER_ARRIVE), int(Op.BARRIER_SYNC)
+
+    def call(T, NB, ops=(INIT, WAIT, ARRIVE, SYNC, int(Op.IALU)),
+             n_bars=None, p_active=0.9):
+        ln = Lanes.zeros(T, dev)
+        pool = torch.tensor(ops, dtype=i32, device=dev)
+        ln.op.copy_(pool[rint(0, len(ops), (T,))])
+        ln.aux0.copy_(rint(-2, (n_bars or NB) + 2, (T,), i32))
+        ln.aux1.copy_(rint(-12, 40, (T,), i32))
+        ln.active.copy_(rbool(p_active, (T,)))
+        ln.done.copy_(rbool(0.05, (T,)))
+        tables = BarrierTables(
+            rint(0, 300, (NB,), i32), rint(0, 200, (NB,), i32),
+            rint(-5000, 9000, (NB,)), rbool(0.3, (T,)),
+            rint(-3, 30, (NB,), i32), rint(0, 9000, (NB, GEN_RING)))
+        return BarrierCall(ln, rint(-100, 10_000, (T,)), tables)
+
+    names = []
+    # random mixes at every (T, NB) corner: one barrier, the most, lane
+    # counts below, at and above the 1024-thread block, not multiples
+    # of a warp
+    for T, NB in ((1024, 64), (1024, 1), (1024, MAX_BARRIERS), (1000, 64),
+                  (37, 5), (1500, 64), (2048, MAX_BARRIERS), (16, 1024)):
+        for n_bars in (4, None):
+            check_barrier(call(T, NB, n_bars=n_bars), stats)
+    names.append("barrier_random_T_NB_corners")
+
+    # every one of 1024 lanes arrives at one barrier: released at once
+    # (count 1024) or not (count 2000)
+    for cnt in (1024, 2000):
+        c = call(1024, 64, ops=(WAIT,), p_active=1.0)
+        c.lanes.aux0.fill_(3)
+        c.lanes.done.fill_(False)
+        c.sync.barrier_waiting.fill_(False)
+        c.sync.barrier_count[3] = cnt
+        c.sync.barrier_arrived[3] = 0
+        r = check_barrier(c, stats)
+        if bool(r.lanes.released.all()) != (cnt == 1024):
+            raise AssertionError("edge case: 1024 arrivals at one barrier")
+    names.append("all_lanes_one_barrier")
+
+    # several barriers release in one iteration: barrier b gets exactly
+    # count(b) arrivals, b in 0..7, from lanes spread over a warp each
+    c = call(1024, 64, ops=(WAIT, ARRIVE), p_active=1.0)
+    lane = torch.arange(1024, device=dev, dtype=i32)
+    c.lanes.aux0.copy_(lane % 8)
+    c.lanes.done.fill_(False)
+    c.sync.barrier_waiting.fill_(False)
+    c.sync.barrier_count[:8] = 128
+    c.sync.barrier_arrived[:8] = 0
+    r = check_barrier(c, stats)
+    if int((r.sync.barrier_arrived[:8] == 0).sum()) != 8:
+        raise AssertionError("edge case: eight releases in one iteration")
+    names.append("several_releases")
+
+    # many tiles init one barrier with different, negative counts: the
+    # lowest active initialising tile's count wins
+    c = call(1024, 64, ops=(INIT,), p_active=0.7)
+    c.lanes.aux0.fill_(5)
+    c.lanes.aux1.copy_(rint(-1000, 1000, (1024,), i32))
+    r = check_barrier(c, stats)
+    first = int(torch.nonzero(c.lanes.active)[0])
+    if int(r.sync.barrier_count[5]) != int(c.lanes.aux1[first]):
+        raise AssertionError("edge case: init election")
+    names.append("init_race_negative_counts")
+
+    # BARRIER_SYNC across the ring's wrap: barrier 2 releases into
+    # generation 16 (slot 0) while lanes wait on generations 8..24
+    c = call(1024, 64, ops=(SYNC,), p_active=1.0)
+    c.lanes.aux0.fill_(2)
+    c.lanes.aux1.copy_(rint(-9, 25, (1024,), i32))
+    c.lanes.op[:4] = ARRIVE
+    c.lanes.active[:4] = True
+    c.sync.barrier_count[2], c.sync.barrier_arrived[2] = 4, 0
+    c.sync.barrier_gen[2] = 15
+    r = check_barrier(c, stats)
+    if int(r.sync.barrier_gen[2]) != 16:
+        raise AssertionError("edge case: ring wrap did not release")
+    names.append("sync_ring_wrap")
+
+    # no active barrier op (the gate is false) over non-zero tables, a
+    # negative time at barrier 0; then the same with a barrier already due
+    for due in (False, True):
+        c = call(1024, 64, ops=(WAIT, INIT, SYNC, int(Op.SEND)),
+                 p_active=0.0)
+        c.lanes.op[::3] = int(Op.SEND)
+        c.lanes.active[::3] = True
+        c.sync.barrier_time_ps[0] = -77
+        c.sync.barrier_count.clamp_(min=1)
+        c.sync.barrier_arrived.copy_(c.sync.barrier_count - 1)
+        if due:
+            c.sync.barrier_arrived[9] = c.sync.barrier_count[9]
+        r = check_barrier(c, stats)
+        if int(r.sync.barrier_time_ps[0]) != 0:
+            raise AssertionError("edge case: idle max(time[0], 0)")
+    names.append("idle_tables+barrier_already_due")
     return names
 
 
@@ -629,9 +799,8 @@ def time_kernels(sim, ctx, st, ln, names=KERNEL_ORDER) -> dict:
         timers = [("ms", name, graph_ms),
                   ("call_ms", name, lambda f: time_ms(f, 200)),
                   ("plain_ms", name + "_plain", lambda f: time_ms(f, 20))]
-        if name in BOUND_KERNELS:
-            timers.append(("call_unbound_ms", name,
-                           lambda f: time_ms(unbound(f, kernel), 200)))
+        timers.append(("call_unbound_ms", name,
+                       lambda f: time_ms(unbound(f, kernel), 200)))
         res = {}
         for impl, fn_name, timer in timers:
             s2, l2 = st.clone(), ln.clone()
@@ -683,9 +852,18 @@ RESULT_FIELDS = (
     "detailed_stalls", "telemetry", "profile", "hist")
 
 
+def at_barrier(ln) -> bool:
+    """Whether at least half the lanes are active at BARRIER_WAIT."""
+    from graphite_tpu_torch.trace.schema import Op
+
+    n = int((ln.active & (ln.op == int(Op.BARRIER_WAIT))).sum())
+    return 2 * n >= ln.op.shape[0]
+
+
 def phase_kernels(dev, batch, stats) -> dict:
     """Phase 3 at T = 1024: checked iterations of the full-width FFT, the
-    edge cases, and timings at a send-phase and a receive-phase state."""
+    edge cases, and timings at a send-phase, a receive-phase and a
+    barrier-phase state (the first iteration found at a barrier)."""
     import torch
 
     sim = make_sim(1024, batch, dev, inner_block=64)
@@ -694,20 +872,29 @@ def phase_kernels(dev, batch, stats) -> dict:
     n_checked = 1100            # barrier init + release, sends, receives
     at = {i: phase for phase, i in TIMING_AT.items()}
     timings = {}
+    barrier_at = None
     t0 = time.perf_counter()
     for i in range(n_checked):
         if i in at:
             timings[at[i]] = time_kernels(sim, ctx, st.clone(), ln.clone())
+        before = (st.clone(), ln.clone()) if barrier_at is None else None
         checked_iteration(ctx, st, ln, stats)
+        if barrier_at is None and at_barrier(ln):
+            barrier_at = i
+            timings["barrier_phase"] = time_kernels(sim, ctx, *before)
     torch.cuda.synchronize()
     checked_s = time.perf_counter() - t0
+    if barrier_at is None:
+        raise AssertionError("no checked iteration has half the lanes at "
+                             "BARRIER_WAIT")
     cases = edge_cases(sim, stats)
     fctx, fst, fln = follow_on_timing_state(sim)
     timings["follow_on"] = time_kernels(sim, fctx, fst, fln,
                                         ("lane_commit",))
     torch.cuda.synchronize()
     return {"iterations_checked": n_checked, "checked_s": checked_s,
-            "edge_cases": cases, "timings": timings}
+            "barrier_phase_at": barrier_at, "edge_cases": cases,
+            "timings": timings}
 
 
 def phase_end_to_end(dev, card: str) -> None:
@@ -784,7 +971,7 @@ def phase_full_width(dev, batch) -> dict:
     t0 = time.perf_counter()
     sim.warmup()
     warm_s = time.perf_counter() - t0
-    walls = []
+    walls, packs = [], []
     for _ in range(RUNS):
         sim.state = init._map(lambda t: t.to(dev, copy=True))
         torch.cuda.reset_peak_memory_stats(dev)
@@ -795,15 +982,20 @@ def phase_full_width(dev, batch) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         counts = ops.launch_counts()
+        packs.append(ops.pack_counts())
         iters = sim.last_n_iterations
         missing = [k for k in KERNEL_ORDER if counts[k] <= 0]
         if missing:
             raise AssertionError(f"main path never launched {missing}")
-        off = {k: counts[k] for k in BOUND_KERNELS if counts[k] != iters}
+        off = {k: counts[k] for k in KERNEL_ORDER if counts[k] != iters}
         if off:
             raise AssertionError(f"{off} launches in {iters} iterations: "
                                  "expected one a call, one call an "
                                  "iteration")
+        repacked = {k: n for k, n in packs[-1].items() if n > 1}
+        if repacked:
+            raise AssertionError(f"{repacked} packs in one run: expected "
+                                 "at most one a kernel")
     if not bool(sim.state.done.all()):
         raise AssertionError("full width: not every tile is done")
     expect = (trace_instructions(batch) + int(r.recv_instructions.sum())
@@ -825,7 +1017,7 @@ def phase_full_width(dev, batch) -> dict:
         "iterations": sim.last_n_iterations, "n_quanta": r.n_quanta,
         "mailbox_depth": sim.params.mailbox_depth,
         "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-        "launches": counts,
+        "launches": counts, "packs": packs,
     }, sim, init
 
 
@@ -927,28 +1119,30 @@ def main() -> int:
                 "us": t["ms"] * 1e3, "call_us": t["call_ms"] * 1e3,
                 "plain_us": t["plain_ms"] * 1e3,
                 "bound_us": t["bound_ms"] * 1e3, "bytes": t["bytes"]}
-            if "call_unbound_ms" in t:
-                row[state]["call_unbound_us"] = t["call_unbound_ms"] * 1e3
+            row[state]["call_unbound_us"] = t["call_unbound_ms"] * 1e3
         emit(row)
     emit({"phase": "kernels_checked", "card": smi,
           "iterations_checked": kinfo["iterations_checked"],
           "checked_s": kinfo["checked_s"],
+          "barrier_phase_at": kinfo["barrier_phase_at"],
           "edge_cases": kinfo["edge_cases"]})
 
     phase_end_to_end(dev, smi)
     full, sim, init = phase_full_width(dev, batch)
     emit({"phase": "full_width", "card": smi, **full})
-    for state, at in TIMING_AT.items():
+    states = {**TIMING_AT, "barrier_phase": kinfo["barrier_phase_at"]}
+    for state, at in states.items():
         # the inner block of the run that holds the timing state
         start = at // sim.params.inner_block * sim.params.inner_block
         prof = phase_profile(sim, init, start,
                              full["wall_s_median"] / full["iterations"])
         emit({"phase": "profile", "state": state, "card": smi, **prof})
-        one = {k: v["launches"] for k, v in prof["kernels"].items()
-               if k.startswith("user_mailbox_kernel")}
-        if list(one.values()) != [prof["iterations"]]:
-            raise AssertionError(f"user_mailbox: device launches {one} in "
-                                 f"{prof['iterations']} calls")
+        for name in KERNEL_ORDER:
+            one = {k: v["launches"] for k, v in prof["kernels"].items()
+                   if k.startswith(name + "_kernel")}
+            if list(one.values()) != [prof["iterations"]]:
+                raise AssertionError(f"{name}: device launches {one} in "
+                                     f"{prof['iterations']} calls")
 
     rows = []
     send = kinfo["timings"]["send_phase"]

@@ -7,92 +7,129 @@
 // Plain version: graphite_tpu_torch/ops/lane_fetch_cost.py.
 //
 // Bound: bytes.  One thread a lane reads one record (1+1+8+4+4+8 = 26 B)
-// plus ~30 B of lane state and one predictor byte, and writes ~40 B:
-// ~100 KB an iteration at T = 1024, tens of nanoseconds at 3.35 TB/s, so
-// launch latency (a few microseconds) is the real floor.  Design: the
-// simplest form that is right — one thread a lane, no shared memory; the
-// launch floor is left to the fused persistent kernel / CUDA graph of a
-// later change (ROADMAP.md queue 2, K4).
+// plus ~17 B of lane state and one predictor byte, and writes ~47 B:
+// ~93 KB an iteration at T = 1024 (~28 ns at 3.35 TB/s), so the launch
+// and the chain of dependent loads are the floor.
+//
+// Design: one thread a lane, in CTAs of THREADS, every load as early as
+// its address is known.
+//  - idx, clock, freq, done and the device scalars enabled and qend go
+//    out together at the top; the six record loads right after idx; the
+//    predictor byte as soon as pc arrives.  That chain, idx -> record ->
+//    predictor byte, is three dependent round trips, and this kernel
+//    cannot shorten it: the record's address needs this iteration's idx.
+//    Removing it means fetching the next record in the previous
+//    iteration's commit, which is the loop driver's work (ROADMAP.md
+//    queue 2, K4).
+//  - Each record column is [T, L], so each lane's load is its own
+//    32-byte sector; nothing to coalesce.
+//  - The static cost table rides in the argument block (`FetchArgs`,
+//    read through the kernel's parameter bank by __grid_constant__), so
+//    the cost needs no fourth dependent load.
+//  - pc mod bp_size is a mask when bp_size is a power of two (the wrapper
+//    decides once, at bind time) and a 32-bit remainder otherwise: pc is
+//    the zero-extended uint32 column, never negative.
 #include "common.cuh"
 
-__global__ void lane_fetch_cost_kernel(
-    const uint8_t* __restrict__ t_op, const uint8_t* __restrict__ t_flags,
-    const int64_t* __restrict__ t_pc, const int32_t* __restrict__ t_aux0,
-    const int32_t* __restrict__ t_aux1, const int64_t* __restrict__ t_dyn,
-    int T, int L,
-    const int32_t* __restrict__ idx, const int64_t* __restrict__ clock,
-    const int32_t* __restrict__ freq, const uint8_t* __restrict__ bp_bits,
-    int B,
-    const bool* __restrict__ done_in, const bool* __restrict__ enabled,
-    const int64_t* __restrict__ qend,
-    const int64_t* __restrict__ cost_table,
-    int bp_enabled, int bp_penalty, long long syscall_rt_ps,
-    int32_t* __restrict__ o_op, int32_t* __restrict__ o_flags,
-    int64_t* __restrict__ o_pc, int32_t* __restrict__ o_aux0,
-    int32_t* __restrict__ o_aux1, int64_t* __restrict__ o_dyn,
-    int32_t* __restrict__ o_bp_index, uint8_t* __restrict__ o_bp_pred,
-    bool* __restrict__ o_done, bool* __restrict__ o_active,
-    int64_t* __restrict__ o_cost) {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+#define THREADS 64
+#define N_COSTS 20
+
+// Argument block = graphite_tpu_torch/ops/lane_fetch_cost.py `_pack`.
+struct FetchArgs {
+    // lane state
+    const int32_t* idx;
+    const int64_t* clock;
+    const int32_t* freq;
+    const bool* done_in;
+    const uint8_t* bp_bits;    // [T, B]
+    // trace columns, [T, L] each
+    const uint8_t* t_op;
+    const uint8_t* t_flags;
+    const int64_t* t_pc;
+    const int32_t* t_aux0;
+    const int32_t* t_aux1;
+    const int64_t* t_dyn;
+    // device scalars
+    const bool* enabled;
+    const int64_t* qend;
+    const int64_t* cost_table;   // bound for identity; `cost` holds it
+    // lanes
+    int32_t* o_op;
+    int32_t* o_flags;
+    int64_t* o_pc;
+    int32_t* o_aux0;
+    int32_t* o_aux1;
+    int64_t* o_dyn;
+    int32_t* o_bp_index;
+    uint8_t* o_bp_pred;
+    bool* o_done;
+    bool* o_active;
+    int64_t* o_cost;
+    int64_t T, L, B;
+    int64_t bp_mask;           // B - 1 when B is a power of two, else -1
+    int64_t bp_enabled, bp_penalty, syscall_rt_ps;
+    int64_t cost[N_COSTS];     // static cost cycles by op (op < 20)
+};
+
+__global__ void __launch_bounds__(THREADS)
+lane_fetch_cost_kernel(const __grid_constant__ FetchArgs a) {
+    const int T = (int)a.T, L = (int)a.L, B = (int)a.B;
+    const int t = blockIdx.x * THREADS + threadIdx.x;
     if (t >= T) return;
-    const int i = clamp_i32(idx[t], 0, L - 1);
-    const size_t r = (size_t)t * L + i;
-    const int op = t_op[r];
-    const int flags = t_flags[r];
-    const int64_t pc = t_pc[r];          // zero-extended uint32: >= 0
-    const int32_t aux1 = t_aux1[r];
-    const int64_t dyn = t_dyn[r];
-    const int bp_index = (int)(pc % B);  // truncating, like lax.rem
-    const uint8_t pred = bp_bits[(size_t)t * B + bp_index];
+    const int32_t idx = a.idx[t];
+    const int64_t clock = a.clock[t];
+    const int64_t f = a.freq[t];
+    const bool done_in = a.done_in[t];
+    const bool en = *a.enabled;
+    const int64_t q = *a.qend;
+    const size_t r = (size_t)t * L + clamp_i32(idx, 0, L - 1);
+    const int op = a.t_op[r];
+    const int flags = a.t_flags[r];
+    const int64_t pc = a.t_pc[r];   // zero-extended uint32: 0 <= pc < 2^32
+    const int32_t aux0 = a.t_aux0[r];
+    const int32_t aux1 = a.t_aux1[r];
+    const int64_t dyn = a.t_dyn[r];
+    const int bp_index = a.bp_mask >= 0
+                             ? (int)(pc & a.bp_mask)
+                             : (int)((uint32_t)pc % (uint32_t)B);
+    const uint8_t pred = a.bp_bits[(size_t)t * B + bp_index];
 
-    const bool done = done_in[t] || op == OP_NOP || op == OP_THREAD_EXIT;
-    const bool active = !done && clock[t] < *qend;
+    const bool done = done_in || op == OP_NOP || op == OP_THREAD_EXIT;
+    const bool active = !done && clock < q;
 
-    const int64_t f = freq[t];
     int64_t cycles;
     if (op == OP_BRANCH) {
         const uint8_t taken = (flags & FLAG_BRANCH_TAKEN) ? 1 : 0;
-        cycles = bp_enabled ? (pred == taken ? 1 : bp_penalty) : 1;
+        cycles = a.bp_enabled ? (pred == taken ? 1 : a.bp_penalty) : 1;
     } else {
-        cycles = cost_table[op > 19 ? 19 : op];
+        cycles = a.cost[op < N_COSTS ? op : N_COSTS - 1];
     }
     int64_t cost = ceil_div_i64(cycles * 1000000, f);
-    if (op >= OP_DYNAMIC_MISC && op < 20) cost = dyn;
-    if (op >= 20) cost = 0;
-    if (op == OP_SYSCALL || op == OP_DVFS_GET) cost = syscall_rt_ps;
+    if (op >= OP_DYNAMIC_MISC && op < N_COSTS) cost = dyn;
+    if (op >= N_COSTS) cost = 0;
+    if (op == OP_SYSCALL || op == OP_DVFS_GET) cost = a.syscall_rt_ps;
     if (op == OP_BBLOCK) cost = ceil_div_i64((int64_t)aux1 * 1000000, f);
-    if (!*enabled) cost = 0;
+    if (!en) cost = 0;
 
-    o_op[t] = op;
-    o_flags[t] = flags;
-    o_pc[t] = pc;
-    o_aux0[t] = t_aux0[r];
-    o_aux1[t] = aux1;
-    o_dyn[t] = dyn;
-    o_bp_index[t] = bp_index;
-    o_bp_pred[t] = pred;
-    o_done[t] = done;
-    o_active[t] = active;
-    o_cost[t] = cost;
+    a.o_op[t] = op;
+    a.o_flags[t] = flags;
+    a.o_pc[t] = pc;
+    a.o_aux0[t] = aux0;
+    a.o_aux1[t] = aux1;
+    a.o_dyn[t] = dyn;
+    a.o_bp_index[t] = bp_index;
+    a.o_bp_pred[t] = pred;
+    a.o_done[t] = done;
+    a.o_active[t] = active;
+    a.o_cost[t] = cost;
 }
 
-extern "C" int gt_lane_fetch_cost(
-    const uint8_t* t_op, const uint8_t* t_flags, const int64_t* t_pc,
-    const int32_t* t_aux0, const int32_t* t_aux1, const int64_t* t_dyn,
-    int T, int L, const int32_t* idx, const int64_t* clock,
-    const int32_t* freq, const uint8_t* bp_bits, int B, const bool* done_in,
-    const bool* enabled, const int64_t* qend, const int64_t* cost_table,
-    int bp_enabled, int bp_penalty, long long syscall_rt_ps,
-    int32_t* o_op, int32_t* o_flags, int64_t* o_pc, int32_t* o_aux0,
-    int32_t* o_aux1, int64_t* o_dyn, int32_t* o_bp_index,
-    uint8_t* o_bp_pred, bool* o_done, bool* o_active, int64_t* o_cost,
-    cudaStream_t stream) {
-    const int threads = 256;
-    const int blocks = (T + threads - 1) / threads;
-    lane_fetch_cost_kernel<<<blocks, threads, 0, stream>>>(
-        t_op, t_flags, t_pc, t_aux0, t_aux1, t_dyn, T, L, idx, clock, freq,
-        bp_bits, B, done_in, enabled, qend, cost_table, bp_enabled,
-        bp_penalty, syscall_rt_ps, o_op, o_flags, o_pc, o_aux0, o_aux1,
-        o_dyn, o_bp_index, o_bp_pred, o_done, o_active, o_cost);
+extern "C" int gt_lane_fetch_cost(const FetchArgs* args,
+                                  cudaStream_t stream) {
+    static_assert(sizeof(FetchArgs) == 52 * 8,
+                  "FetchArgs: 25 pointers, 7 int64 and 20 costs");
+    const int T = (int)args->T;
+    lane_fetch_cost_kernel<<<(T + THREADS - 1) / THREADS, THREADS, 0,
+                             stream>>>(*args);
     return (int)cudaGetLastError();
 }

@@ -9,8 +9,10 @@
 
 Each wrapper runs its `*_plain` PyTorch version for CPU tensors and
 launches its kernel (`csrc/<name>.cu`) for CUDA tensors, or raises; it
-never falls back from the kernel to the plain version.  `KERNELS` maps
-each name to its `build.Kernel`, whose `launches` counts kernel launches.
+never falls back from the kernel to the plain version; every kernel
+launches through its binding (`build.Kernel.launch_bound`).  `KERNELS`
+maps each name to its `build.Kernel`, whose `launches` counts kernel
+launches and `packs` the argument sets it validated.
 """
 
 from graphite_tpu_torch.ops import (
@@ -36,14 +38,20 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def pack_counts() -> dict:
+    return {name: k.packs for name, k in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
+    """Set every kernel's `launches` and `packs` to 0."""
     for k in KERNELS.values():
         k.launches = 0
+        k.packs = 0
 
 
 __all__ = [
     "KERNELS", "barrier_sync", "barrier_sync_plain", "lane_commit",
     "lane_commit_plain", "lane_fetch_cost", "lane_fetch_cost_plain",
-    "launch_counts", "reset_launch_counts", "user_mailbox",
+    "launch_counts", "pack_counts", "reset_launch_counts", "user_mailbox",
     "user_mailbox_plain",
 ]

@@ -2,7 +2,10 @@
 
 Replaces `_barrier_block` (`graphite_tpu/engine/step.py:505-577`) with its
 `_elect_min` init election (`:136-146`).  Kernel: `csrc/barrier_sync.cu`,
-one CTA that strides over the lanes.
+one CTA, one lane a thread (a stride loop above 1024 lanes), which skips
+the block on the device when no lane is at a barrier op; launched
+through a binding (`build.Kernel.launch_bound`): its arguments are
+validated once per set of tensors, not on every call.
 
 Semantics (both versions, updating the barrier tables in place; bar =
 clip(aux0, 0, NB-1)):
@@ -24,13 +27,42 @@ from __future__ import annotations
 import torch
 
 from graphite_tpu_torch.engine.state import GEN_RING, Lanes, SyncState
-from graphite_tpu_torch.ops.build import I32, P, Kernel, check
+from graphite_tpu_torch.ops.build import Kernel, pack_args
 from graphite_tpu_torch.trace.schema import Op
 
 BIG = 2**62
-# the kernel stages the barrier tables in shared memory (24 B a barrier)
+# the kernel stages the barrier tables in shared memory (32 B a barrier)
+# and runs one CTA of at most 1024 threads
 MAX_BARRIERS = 1024
-KERNEL = Kernel("barrier_sync", "gt_barrier_sync", (P,) * 17 + (I32, I32))
+
+
+def _pack(tensors: tuple, key: tuple):
+    """Validate and pack one argument set (`BarrierArgs` in
+    csrc/barrier_sync.cu: the 17 pointers, then T and NB).  No plain
+    value: `key` is empty."""
+    if key:
+        raise ValueError(f"barrier_sync: unexpected key {key}")
+    T = tensors[0].shape[0]
+    NB = tensors[6].shape[0]
+    if NB > MAX_BARRIERS:
+        raise ValueError(f"barrier_sync: {NB} barriers, at most "
+                         f"{MAX_BARRIERS}")
+    i32, i64, b = torch.int32, torch.int64, torch.bool
+    t, nb = (T,), (NB,)
+    specs = (("lanes.op", i32, t), ("lanes.aux0", i32, t),
+             ("lanes.aux1", i32, t), ("lanes.active", b, t),
+             ("lanes.done", b, t), ("clock_ps", i64, t),
+             ("barrier_count", i32, nb), ("barrier_arrived", i32, nb),
+             ("barrier_time_ps", i64, nb), ("barrier_waiting", b, t),
+             ("barrier_gen", i32, nb),
+             ("barrier_release_ps", i64, (NB, GEN_RING)),
+             ("lanes.released", b, t), ("lanes.release_time", i64, t),
+             ("lanes.barrive_now", b, t), ("lanes.bsync_now", b, t),
+             ("lanes.bsync_time", i64, t))
+    return pack_args(tensors, specs, (T, NB))
+
+
+KERNEL = Kernel("barrier_sync", "gt_barrier_sync", pack=_pack)
 
 
 def elect_min(mask: torch.Tensor, gid: torch.Tensor, key: torch.Tensor,
@@ -103,30 +135,13 @@ def barrier_sync(lanes: Lanes, clock: torch.Tensor, sync: SyncState) -> None:
         return
     if clock.device.type != "cuda":
         raise ValueError(f"barrier_sync: unsupported device {clock.device}")
-    dev = clock.device
-    T = clock.shape[0]
-    NB = sync.barrier_count.shape[0]
-    if NB > MAX_BARRIERS:
-        raise ValueError(f"barrier_sync: {NB} barriers, at most "
-                         f"{MAX_BARRIERS}")
-    i32, i64, b = torch.int32, torch.int64, torch.bool
-    KERNEL.launch(
-        check(lanes.op, "lanes.op", i32, (T,), dev),
-        check(lanes.aux0, "lanes.aux0", i32, (T,), dev),
-        check(lanes.aux1, "lanes.aux1", i32, (T,), dev),
-        check(lanes.active, "lanes.active", b, (T,), dev),
-        check(lanes.done, "lanes.done", b, (T,), dev),
-        check(clock, "clock_ps", i64, (T,), dev),
-        check(sync.barrier_count, "barrier_count", i32, (NB,), dev),
-        check(sync.barrier_arrived, "barrier_arrived", i32, (NB,), dev),
-        check(sync.barrier_time_ps, "barrier_time_ps", i64, (NB,), dev),
-        check(sync.barrier_waiting, "barrier_waiting", b, (T,), dev),
-        check(sync.barrier_gen, "barrier_gen", i32, (NB,), dev),
-        check(sync.barrier_release_ps, "barrier_release_ps", i64,
-              (NB, GEN_RING), dev),
-        check(lanes.released, "lanes.released", b, (T,), dev),
-        check(lanes.release_time, "lanes.release_time", i64, (T,), dev),
-        check(lanes.barrive_now, "lanes.barrive_now", b, (T,), dev),
-        check(lanes.bsync_now, "lanes.bsync_now", b, (T,), dev),
-        check(lanes.bsync_time, "lanes.bsync_time", i64, (T,), dev),
-        T, NB)
+    KERNEL.launch_bound(*bound_args(lanes, clock, sync))
+
+
+def bound_args(lanes: Lanes, clock: torch.Tensor, sync: SyncState) -> tuple:
+    """The (tensors, key) a call binds, in `BarrierArgs` order."""
+    return ((lanes.op, lanes.aux0, lanes.aux1, lanes.active, lanes.done,
+             clock, sync.barrier_count, sync.barrier_arrived,
+             sync.barrier_time_ps, sync.barrier_waiting, sync.barrier_gen,
+             sync.barrier_release_ps, lanes.released, lanes.release_time,
+             lanes.barrive_now, lanes.bsync_now, lanes.bsync_time), ())

@@ -14,24 +14,26 @@ hash of the sources, so an edited kernel is never served from a stale
 build.  Nothing here runs at import time, and nothing here runs on the
 CPU path: the wrappers in `ops/` reach a launch only for CUDA tensors.
 
-Each `Kernel` keeps an integer `launches` count, which `launch` and
-`launch_bound` increment once per call of its C entry point and nowhere
-else.  Every entry point launches exactly one kernel, so the count is
-the number of kernel launches.
+Each `Kernel` keeps an integer `launches` count, which `launch_bound`
+increments once per call of its C entry point and nowhere else.  Every
+entry point launches exactly one kernel, so the count is the number of
+kernel launches.  `packs` counts the argument sets it validated.
 
-Bound launch path (`Kernel.launch_bound`).  Validating and packing every
-argument on every call costs tens of microseconds of Python, several
-times a kernel's device time.  A bound kernel validates a set of tensors
-once (device, dtype, shape, contiguity) and packs their pointers and its
-plain values into one argument block; while later calls pass the very
-same tensor objects and the same plain values, a launch is one ctypes
-call with that block.  The binding holds a weak reference to each
-tensor and checks on every call that each one still resolves to the
-tensor passed (`ref() is t`): a tensor that was freed resolves to None,
-so its pointer is never used again, and an object id reused for another
-tensor never matches.  The binding keeps nothing alive, so a replaced
-state (`Simulator.warmup`'s clone, a new `qend`) is freed as usual, and
-the next call validates and binds anew.  (A tensor freed while its
+The launch path (`Kernel.launch_bound`), the only one.  Validating and
+packing every argument on every call costs tens of microseconds of
+Python, several times a kernel's device time.  Every entry point takes
+`(const Args*, stream)`: one argument block, a struct of the tensors'
+pointers and the kernel's plain values.  A kernel validates a set of
+tensors once (device, dtype, shape, contiguity) and packs the block
+(its `pack`); while later calls pass the very same tensor objects and
+the same plain values, a launch is one ctypes call with that block.
+The binding holds a weak reference to each tensor and checks on every
+call that each one still resolves to the tensor passed (`ref() is
+t`): a tensor that was freed resolves to None, so its pointer is never
+used again, and an object id reused for another tensor never matches.
+The binding keeps nothing alive, so a replaced state
+(`Simulator.warmup`'s clone, a new `qend`) is freed as usual, and the
+next call validates and binds anew.  (A tensor freed while its
 kernel still runs is safe as for any PyTorch op: the launch is on
 PyTorch's current stream, whose order the caching allocator keeps.)
 Each kernel keeps only its newest binding.  The port never re-points a
@@ -131,8 +133,6 @@ def load(name: str) -> ctypes.CDLL:
 
 
 P = ctypes.c_void_p
-I32 = ctypes.c_int
-I64 = ctypes.c_longlong
 
 
 class Binding:
@@ -156,21 +156,19 @@ class Binding:
 
 
 class Kernel:
-    """One CUDA entry point: `launch(*args)` calls `symbol(*args, stream)`
-    on PyTorch's current stream, raises on a non-zero launch status, and
-    counts the launch.  A kernel made with `pack` is a bound kernel: its
-    entry point takes `(args block, stream)` and its wrapper calls
-    `launch_bound`; `pack(tensors, key)` validates the arguments and
-    returns the block (a ctypes array)."""
+    """One CUDA entry point `symbol(args block, stream)`.  Its wrapper
+    calls `launch_bound(tensors, key)`, which launches on PyTorch's
+    current stream, raises on a non-zero launch status and counts the
+    launch; `pack(tensors, key)` validates the arguments and returns the
+    block (a ctypes array)."""
 
-    def __init__(self, name: str, symbol: str, argtypes: tuple = (P,),
-                 pack=None):
+    def __init__(self, name: str, symbol: str, pack):
         self.name = name
         self.symbol = symbol
-        self.argtypes = argtypes
         self.pack = pack
         self.source = f"graphite_tpu_torch/csrc/{name}.cu"
         self.launches = 0
+        self.packs = 0
         self.binding = None
         self._fn = None
 
@@ -178,7 +176,7 @@ class Kernel:
         if self._fn is None:
             lib = load(self.name)
             fn = getattr(lib, self.symbol)
-            fn.argtypes = [*self.argtypes, P]
+            fn.argtypes = [P, P]
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
         return self._fn
@@ -186,14 +184,6 @@ class Kernel:
     def _raise(self, rc: int) -> None:
         msg = self._lib.gt_error_string(rc).decode()
         raise RuntimeError(f"{self.name}: launch failed: {msg} ({rc})")
-
-    def launch(self, *args) -> None:
-        fn = self._bind()
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, stream)
-        if rc != 0:
-            self._raise(rc)
-        self.launches += 1
 
     def bind(self, tensors: tuple, key: tuple) -> Binding:
         """The binding of `tensors` and `key`: the kernel's current one
@@ -205,6 +195,7 @@ class Kernel:
             return b
         self.binding = None          # never hold two argument sets
         b = Binding(tensors, key, self.pack(tensors, key))
+        self.packs += 1
         self.binding = b
         return b
 

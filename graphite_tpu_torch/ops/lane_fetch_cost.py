@@ -2,23 +2,67 @@
 
 Replaces the fetch (`graphite_tpu/engine/step.py:193-241`), the done/
 active latch (`:242-251`) and the classify + cost block (`:342-403`) of
-the JAX step.  Kernel: `csrc/lane_fetch_cost.cu`.  For CPU tensors the
-wrapper runs `lane_fetch_cost_plain`, the same function in PyTorch; for
-CUDA tensors it launches the kernel or raises.
+the JAX step.  Kernel: `csrc/lane_fetch_cost.cu`, one thread a lane,
+launched through a binding (`build.Kernel.launch_bound`): its arguments
+are validated once per set of tensors, and the static cost table is read
+into the argument block then (the port never writes the table).  For CPU
+tensors the wrapper runs `lane_fetch_cost_plain`, the same function in
+PyTorch; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+from operator import attrgetter
 
 import torch
 
 from graphite_tpu_torch.engine.state import CoreState, DeviceTrace, Lanes
 from graphite_tpu_torch.intmath import nn_ceil_div
-from graphite_tpu_torch.ops.build import I32, I64, P, Kernel, check
+from graphite_tpu_torch.ops.build import Kernel, check, pack_args
 from graphite_tpu_torch.trace.schema import FLAG_BRANCH_TAKEN, Op
 
-KERNEL = Kernel("lane_fetch_cost", "gt_lane_fetch_cost",
-                (P,) * 6 + (I32, I32) + (P,) * 4 + (I32,) + (P,) * 4
-                + (I32, I32, I64) + (P,) * 11)
+N_COSTS = 20
+# (field, dtype) of the trace columns and of the lane outputs, in the
+# pointer order of the kernel's `FetchArgs` struct (csrc/lane_fetch_cost.cu)
+_TRACE = (("op", torch.uint8), ("flags", torch.uint8), ("pc", torch.int64),
+          ("aux0", torch.int32), ("aux1", torch.int32),
+          ("dyn_ps", torch.int64))
+_LANES = (("op", torch.int32), ("flags", torch.int32), ("pc", torch.int64),
+          ("aux0", torch.int32), ("aux1", torch.int32),
+          ("dyn_ps", torch.int64), ("bp_index", torch.int32),
+          ("bp_pred", torch.uint8), ("done", torch.bool),
+          ("active", torch.bool), ("cost_ps", torch.int64))
+_trace_get = attrgetter(*(n for n, _ in _TRACE))
+_lanes_get = attrgetter(*(n for n, _ in _LANES))
+_COST_TABLE = 13                  # its place in the bound tensors
+
+
+def _pack(tensors: tuple, key: tuple):
+    """Validate and pack one argument set (`FetchArgs` in
+    csrc/lane_fetch_cost.cu: the 25 pointers, then T, L, B, the predictor
+    mask, the three plain values and the 20 static costs)."""
+    bp_enabled, bp_penalty, syscall_rt_ps = key
+    T = tensors[0].shape[0]
+    L = tensors[5].shape[1]
+    B = tensors[4].shape[1]
+    t = (T,)
+    specs = [("core.idx", torch.int32, t), ("core.clock_ps", torch.int64, t),
+             ("core.freq_mhz", torch.int32, t), ("done", torch.bool, t),
+             ("core.bp_bits", torch.uint8, (T, B))]
+    specs += [(f"trace.{n}", dt, (T, L)) for n, dt in _TRACE]
+    specs += [("enabled", torch.bool, ()), ("qend", torch.int64, ()),
+              ("cost_table", torch.int64, (N_COSTS,))]
+    specs += [(f"lanes.{n}", dt, t) for n, dt in _LANES]
+    costs = tensors[_COST_TABLE]
+    check(costs, "cost_table", torch.int64, (N_COSTS,), tensors[0].device)
+    # pc mod B as a mask when B is a power of two
+    bp_mask = B - 1 if B & (B - 1) == 0 else -1
+    return pack_args(tensors, specs, (
+        T, L, B, bp_mask, bool(bp_enabled), bp_penalty, syscall_rt_ps,
+        *costs.tolist()))
+
+
+KERNEL = Kernel("lane_fetch_cost", "gt_lane_fetch_cost", pack=_pack)
 
 
 def lane_fetch_cost_plain(trace: DeviceTrace, core: CoreState,
@@ -92,33 +136,15 @@ def lane_fetch_cost(trace: DeviceTrace, core: CoreState, done: torch.Tensor,
         return
     if done.device.type != "cuda":
         raise ValueError(f"lane_fetch_cost: unsupported device {done.device}")
-    dev = done.device
-    T, L = trace.op.shape
-    B = core.bp_bits.shape[1]
-    u8, i32, i64, b = torch.uint8, torch.int32, torch.int64, torch.bool
-    args = [
-        check(trace.op, "trace.op", u8, (T, L), dev),
-        check(trace.flags, "trace.flags", u8, (T, L), dev),
-        check(trace.pc, "trace.pc", i64, (T, L), dev),
-        check(trace.aux0, "trace.aux0", i32, (T, L), dev),
-        check(trace.aux1, "trace.aux1", i32, (T, L), dev),
-        check(trace.dyn_ps, "trace.dyn_ps", i64, (T, L), dev),
-        T, L,
-        check(core.idx, "idx", i32, (T,), dev),
-        check(core.clock_ps, "clock_ps", i64, (T,), dev),
-        check(core.freq_mhz, "freq_mhz", i32, (T,), dev),
-        check(core.bp_bits, "bp_bits", u8, (T, B), dev),
-        B,
-        check(done, "done", b, (T,), dev),
-        check(enabled, "enabled", b, (), dev),
-        check(qend, "qend", i64, (), dev),
-        check(cost_table, "cost_table", i64, (20,), dev),
-        int(bool(bp_enabled)), int(bp_penalty), int(syscall_rt_ps),
-    ]
-    for name, dt in (("op", i32), ("flags", i32), ("pc", i64),
-                     ("aux0", i32), ("aux1", i32), ("dyn_ps", i64),
-                     ("bp_index", i32), ("bp_pred", u8), ("done", b),
-                     ("active", b), ("cost_ps", i64)):
-        args.append(check(getattr(lanes, name), f"lanes.{name}", dt,
-                          (T,), dev))
-    KERNEL.launch(*args)
+    KERNEL.launch_bound(*bound_args(trace, core, done, enabled, qend,
+                                    cost_table, bp_enabled, bp_penalty,
+                                    syscall_rt_ps, lanes))
+
+
+def bound_args(trace, core, done, enabled, qend, cost_table, bp_enabled,
+               bp_penalty, syscall_rt_ps, lanes) -> tuple:
+    """The (tensors, key) a call binds, in `FetchArgs` order."""
+    return ((core.idx, core.clock_ps, core.freq_mhz, done, core.bp_bits,
+             *_trace_get(trace), enabled, qend, cost_table,
+             *_lanes_get(lanes)),
+            (bool(bp_enabled), int(bp_penalty), int(syscall_rt_ps)))

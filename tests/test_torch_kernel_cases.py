@@ -1,19 +1,25 @@
-"""The corners the one-launch `user_mailbox` and the window-first
-`lane_commit` must get right: one JAX step against one port step.
+"""The corners the kernels must get right: one JAX step against one
+port step.
 
 Each case is a crafted state at T = 16 over one trace whose columns hold
-the records under test (a state's `idx` picks its column).  JAX runs
+the records under test (a state's `idx` picks its column): the one-
+launch `user_mailbox`'s sends and receives, the window-first
+`lane_commit`'s follow-on runs, `barrier_sync`'s racing inits with
+negative counts, a full release and a split barrier across the
+generation ring's wrap, and a run under a predictor whose size is not a
+power of two (`lane_fetch_cost`'s remainder, not its mask).  JAX runs
 `subquantum_iteration`; the port takes one step on the CPU through the
 plain versions of its kernels, which the kernels equal bit for bit on
 the card (`chip_smoke.py` holds them against each other on the same
 families at T = 1024).  Every new-state leaf and the advanced-lane count
 must be equal: zero tolerance.
 
-A CPU test of the bound launch path closes the file: it launches
-nothing, and checks that a binding validates once per set of tensors,
-is replaced when any bound tensor object is (as `Simulator.warmup`
-swaps the state for a clone), never matches a tensor that was freed,
-keeps no tensor alive, and is the only one its kernel holds.
+CPU tests of the bound launch path close the file, for all four
+kernels: they launch nothing, and check that a binding validates once
+per set of tensors, is replaced when any bound tensor object is (as
+`Simulator.warmup` swaps the state for a clone), never matches a tensor
+that was freed, keeps no tensor alive, and is the only one its kernel
+holds; and that the argument blocks hold what the kernels read.
 """
 
 import gc
@@ -33,7 +39,8 @@ from graphite_tpu.trace.schema import Op, TraceBatch
 from graphite_tpu_torch.engine.state import Lanes
 from graphite_tpu_torch.models.network_user import route_latency_ps
 from test_torch_step import (
-    assert_step_equal, config_text, make_pair, port_step,
+    assert_step_equal, config_text, jax_trajectory, make_pair, port_step,
+    sync_heavy_batch,
 )
 
 T, D = 16, 3
@@ -185,21 +192,169 @@ def test_follow_on_window_matches_jax(pair, qend, seed):
                f"follow-on qend {qend} seed {seed}")
 
 
+# --- barrier_sync's corners: racing inits, a full release, a ring wrap ---
+
+NB = 4
+BARRIER_COLS = ("init_race", "full_release", "sync_ring_wrap")
+
+
+def barrier_batch() -> TraceBatch:
+    """One column a barrier case (a state's `idx` picks its column)."""
+    BL = len(BARRIER_COLS)
+    op = np.full((T, BL), int(Op.IALU), np.uint8)
+    aux0 = np.zeros((T, BL), np.int32)
+    aux1 = np.zeros((T, BL), np.int32)
+    tiles = np.arange(T)
+    c = {name: i for i, name in enumerate(BARRIER_COLS)}
+    # every tile inits barrier t mod 3 with its own count, some negative;
+    # tile 15 waits at barrier 3 instead
+    col = c["init_race"]
+    op[:, col] = int(Op.BARRIER_INIT)
+    aux0[:, col] = tiles % 3
+    aux1[:, col] = (tiles * 7) % 23 - 15
+    op[15, col] = int(Op.BARRIER_WAIT)
+    aux0[15, col] = 3
+    # tiles 0-11 wait at barrier 1, tiles 12-15 arrive there (split form)
+    col = c["full_release"]
+    op[:, col] = np.where(tiles < 12, int(Op.BARRIER_WAIT),
+                          int(Op.BARRIER_ARRIVE))
+    aux0[:, col] = 1
+    # tiles 0-1 arrive at barrier 2, the rest sync on generations of it
+    # on both sides of the ring's wrap (aux1 - 8, aux1, negative ones)
+    col = c["sync_ring_wrap"]
+    op[:, col] = np.where(tiles < 2, int(Op.BARRIER_ARRIVE),
+                          int(Op.BARRIER_SYNC))
+    aux0[:, col] = 2
+    aux1[:, col] = np.array([0, 0, 16, 8, 0, 15, 17, 9, -1, -8, -9, 7, 24,
+                             16, 1, 23])
+    z = lambda d: np.zeros((T, BL), d)  # noqa: E731
+    return TraceBatch(
+        op=op, flags=z(np.uint8), pc=z(np.uint32), addr0=z(np.uint32),
+        addr1=z(np.uint32), size0=z(np.uint8), size1=z(np.uint8),
+        aux0=aux0, aux1=aux1, dyn_ps=z(np.int64), rreg0=z(np.uint16),
+        rreg1=z(np.uint16), wreg=z(np.uint16))
+
+
+@pytest.fixture(scope="module")
+def barrier_pair():
+    js, ts = make_pair(config_text(T), barrier_batch(), mailbox_depth=D,
+                       n_barriers=NB)
+    step = jax.jit(lambda st, q: j_step(js.params, js.device_trace, st, q))
+    return js, ts, step
+
+
+def barrier_state(kind, seed, base):
+    """A state at `kind`'s column whose barrier tables hold non-zero
+    counts, arrivals, times and generations everywhere."""
+    rng = np.random.default_rng(seed)
+    col = BARRIER_COLS.index(kind)
+    count = rng.integers(20, 40, NB).astype(np.int32)   # no stale release
+    arrived = rng.integers(0, 20, NB).astype(np.int32)
+    waiting = rng.random(T) < 0.2
+    gen = rng.integers(0, 30, NB).astype(np.int32)
+    done = rng.random(T) < 0.1
+    if kind == "full_release":
+        # tiles 0-5 already wait; the other ten arrive now and release
+        waiting = np.arange(T) < 6
+        count[1], arrived[1] = T, 6
+        done[:] = False
+        done[3] = rng.random() < 0.5      # a done waiter is no participant
+    elif kind == "sync_ring_wrap":
+        # the two arrivals release barrier 2 into generation 16 = slot 0
+        count[2], arrived[2], gen[2] = 4, 2, 15
+        done[:2] = False
+    sync = base.sync.replace(
+        barrier_count=count, barrier_arrived=arrived,
+        barrier_time_ps=rng.integers(1, 60_000, NB).astype(np.int64),
+        barrier_waiting=waiting, barrier_gen=gen,
+        barrier_release_ps=rng.integers(1, 60_000, (NB, 8)).astype(
+            np.int64))
+    core = base.core.replace(
+        idx=np.full(T, col, np.int32),
+        clock_ps=rng.integers(0, 80_000, T).astype(np.int64))
+    return base.replace(core=core, sync=sync, done=done)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("kind", BARRIER_COLS)
+def test_barrier_case_matches_jax(barrier_pair, kind, seed):
+    js, _, _ = barrier_pair
+    base = jax.device_get(js.state)
+    host = barrier_state(kind, seed, base)
+    t_next = check_step(barrier_pair, host, 2**61, f"{kind} seed {seed}")
+    sync = t_next["sync"]
+    if kind == "init_race":
+        # the lowest live initialising tile's count wins, negative or not
+        for b in range(3):
+            t = min(t for t in range(b, 15, 3) if not host.done[t])
+            assert int(sync["barrier_count"][b]) == (t * 7) % 23 - 15
+    elif kind == "full_release":
+        assert int(sync["barrier_arrived"][1]) == 0
+        assert int(sync["barrier_gen"][1]) == int(host.sync.barrier_gen[1]) + 1
+    else:
+        assert int(sync["barrier_gen"][2]) == 16
+
+
+@pytest.mark.parametrize("bp_size", [1000, 48])
+def test_step_matches_jax_with_bp_size_not_a_power_of_two(bp_size):
+    """Along a run whose branches sit at high pcs, under a predictor of
+    `bp_size` entries: pc mod bp_size is a remainder, not a mask."""
+    text = config_text(T).replace("size = 64", f"size = {bp_size}")
+    batch = sync_heavy_batch(T, seed=1)
+    js, ts = make_pair(text, batch)
+    assert ts.params.bp_size == bp_size == js.params.bp_size
+    probes = (0, 1, 2, 4, 6, 9, 13, 20, 30)
+    hosts, advs = jax_trajectory(js, 2**61, max(probes) + 1)
+    for k in probes:
+        t_next, t_adv = port_step(ts, hosts[k], 2**61)
+        assert_step_equal(hosts[k + 1], advs[k], t_next, t_adv,
+                          f"bp_size {bp_size} step {k}")
+    assert int(hosts[-1].core.bp_correct.sum()
+               + hosts[-1].core.bp_incorrect.sum()) > 0
+
+
 # --- the bound launch path, on the CPU (no launch) -------------------------
 
 def _mod(name):
     return importlib.import_module(f"graphite_tpu_torch.ops.{name}")
 
 
+KERNEL_NAMES = ["lane_fetch_cost", "user_mailbox", "barrier_sync",
+                "lane_commit"]
+
+
 def _bound_args(name, sim, qend=torch.tensor(2**61)):
     st, ln = sim.state, sim._lanes
+    if name == "lane_fetch_cost":
+        return _mod(name).bound_args(
+            sim.device_trace, st.core, st.done, st.models_enabled, qend,
+            sim._cost_table, True, 14, 2000, ln)
     if name == "user_mailbox":
         return _mod(name).bound_args(sim.params.net, ln, st.core.clock_ps,
                                      st.models_enabled, st.net)
+    if name == "barrier_sync":
+        return _mod(name).bound_args(ln, st.core.clock_ps, st.sync)
     return _mod(name).bound_args(
         sim.device_trace.op, ln, st.core.freq_mhz, st.models_enabled,
         st.core, st.net, st.done, st.models_enabled,
         qend, sim._cost_table, 15)
+
+
+def watched(name, state):
+    """A state tensor that `name`'s call binds."""
+    return {"lane_fetch_cost": state.core.idx,
+            "user_mailbox": state.net.time_ps,
+            "barrier_sync": state.sync.barrier_release_ps,
+            "lane_commit": state.core.clock_ps}[name]
+
+
+def other_key(name, sim):
+    """Another set of the kernel's plain values (None: it has none)."""
+    return {"lane_fetch_cost": (False, 3, 1000),
+            "user_mailbox": (sim.params.net.__class__(kind="magic",
+                                                      freq_mhz=1000),),
+            "barrier_sync": None,
+            "lane_commit": (3,)}[name]
 
 
 def tensors_of(state, name, sim):
@@ -212,7 +367,7 @@ def tensors_of(state, name, sim):
         sim.state = cur
 
 
-@pytest.mark.parametrize("name", ["user_mailbox", "lane_commit"])
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_binding_validates_once_and_follows_replaced_tensors(
         name, monkeypatch):
     from graphite_tpu_torch.config import ConfigFile, SimConfig
@@ -233,11 +388,12 @@ def test_binding_validates_once_and_follows_replaced_tensors(
 
     monkeypatch.setattr(kernel, "pack", counting_pack)
     monkeypatch.setattr(kernel, "binding", None)
+    monkeypatch.setattr(kernel, "packs", 0)
     launches = kernel.launches
 
     first = kernel.bind(*_bound_args(name, sim))
     assert kernel.bind(*_bound_args(name, sim)) is first
-    assert len(packs) == 1                   # validated once
+    assert len(packs) == 1 == kernel.packs   # validated once
     words = list(first.block)
     bound = _bound_args(name, sim)[0]
     assert words[:len(bound)] == [t.data_ptr() for t in bound]
@@ -245,7 +401,7 @@ def test_binding_validates_once_and_follows_replaced_tensors(
     # warmup's swap: the state becomes a clone, then the original again
     saved = sim.state
     sim.state = saved.clone()
-    clone_rings = weakref.ref(sim.state.net.time_ps)
+    clone_rings = weakref.ref(watched(name, sim.state))
     second = kernel.bind(*_bound_args(name, sim))
     assert second is not first and len(packs) == 2
     assert kernel.binding is second          # the only binding it holds
@@ -262,7 +418,7 @@ def test_binding_validates_once_and_follows_replaced_tensors(
     sim.state = sim.state.clone()
     fourth = kernel.bind(*_bound_args(name, sim))
     assert len(packs) == 4
-    dead = weakref.ref(sim.state.net.time_ps)
+    dead = weakref.ref(watched(name, sim.state))
     sim.state = saved.clone()
     gc.collect()
     assert dead() is None and kernel.binding is fourth
@@ -275,19 +431,23 @@ def test_binding_validates_once_and_follows_replaced_tensors(
     sim._lanes = Lanes.zeros(16, "cpu")
     kernel.bind(*_bound_args(name, sim))
     assert len(packs) == 6
-    if name == "lane_commit":                # run_simulation's new qend
+    if name in ("lane_fetch_cost", "lane_commit"):   # a run's new qend
         kernel.bind(*_bound_args(name, sim, torch.tensor(2**61)))
         assert len(packs) == 7
         packs.pop()
     tensors, key = _bound_args(name, sim)
-    other = ((sim.params.net.__class__(kind="magic", freq_mhz=1000),)
-             if name == "user_mailbox" else (3,))
-    kernel.bind(tensors, other)
-    assert len(packs) == 7 and kernel.binding.key == other
+    other = other_key(name, sim)
+    if other is None:                        # no plain values to change
+        assert key == ()
+        with pytest.raises(ValueError, match="unexpected key"):
+            kernel.bind(tensors, (3,))
+    else:
+        kernel.bind(tensors, other)
+        assert len(packs) == 7 and kernel.binding.key == other
     assert kernel.launches == launches       # nothing was launched
 
 
-@pytest.mark.parametrize("name", ["user_mailbox", "lane_commit"])
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_binding_refuses_bad_arguments(name, monkeypatch):
     from graphite_tpu_torch.config import ConfigFile, SimConfig
     from graphite_tpu_torch.engine.simulator import Simulator
@@ -331,13 +491,54 @@ def test_warmup_frees_its_clone(monkeypatch):
     saved = sim.state
     sim.state = saved.clone()
     held = weakref.ref(sim.state.net.time_ps)
-    for name in ("user_mailbox", "lane_commit"):
+    held = [held] + [weakref.ref(watched(n, sim.state))
+                     for n in KERNEL_NAMES]
+    for name in KERNEL_NAMES:
         kernel = _mod(name).KERNEL
         monkeypatch.setattr(kernel, "binding", None)
         kernel.bind(*_bound_args(name, sim))
     sim.state = saved                # what warmup's restore does
     sim.warmup()
     gc.collect()
-    assert held() is None
-    for name in ("user_mailbox", "lane_commit"):
+    assert [h() for h in held] == [None] * len(held)
+    for name in KERNEL_NAMES:
         assert _mod(name).KERNEL.binding is not None
+
+
+def _cpu_sim(bp_size=None, n_barriers=64):
+    from graphite_tpu_torch.config import ConfigFile, SimConfig
+    from graphite_tpu_torch.engine.simulator import Simulator
+    from graphite_tpu_torch.trace.benchmarks import fft_trace
+
+    return Simulator(SimConfig(ConfigFile.from_string(
+        "[general]\ntotal_cores = 16\n")), fft_trace(16, points_per_tile=16),
+        device="cpu", bp_size=bp_size, n_barriers=n_barriers)
+
+
+@pytest.mark.parametrize("bp_size,mask", [(1024, 1023), (64, 63),
+                                          (1000, -1), (48, -1)])
+def test_fetch_block_holds_mask_and_cost_table(bp_size, mask, monkeypatch):
+    """`lane_fetch_cost`'s block: pc mod bp_size as a mask only for a
+    power of two, and the static cost table read into the block."""
+    mod = _mod("lane_fetch_cost")
+    sim = _cpu_sim(bp_size)
+    monkeypatch.setattr(mod.KERNEL, "binding", None)
+    tensors, key = _bound_args("lane_fetch_cost", sim)
+    words = list(mod.KERNEL.bind(tensors, key).block)
+    T, L = sim.device_trace.op.shape
+    n = len(tensors)
+    assert words[n:n + 7] == [T, L, bp_size, mask, 1, 14, 2000]
+    assert words[n + 7:] == list(sim.params.static_cost_cycles)
+    assert len(words) == 52                  # sizeof(FetchArgs) / 8
+
+
+def test_barrier_binding_refuses_too_many_barriers(monkeypatch):
+    mod = _mod("barrier_sync")
+    monkeypatch.setattr(mod.KERNEL, "binding", None)
+    sim = _cpu_sim(n_barriers=mod.MAX_BARRIERS)
+    words = list(mod.KERNEL.bind(*_bound_args("barrier_sync", sim)).block)
+    assert words[-2:] == [16, mod.MAX_BARRIERS]
+    assert len(words) == 19                  # sizeof(BarrierArgs) / 8
+    sim = _cpu_sim(n_barriers=mod.MAX_BARRIERS + 1)
+    with pytest.raises(ValueError, match="at most 1024"):
+        mod.KERNEL.bind(*_bound_args("barrier_sync", sim))
