@@ -8,7 +8,7 @@ toolkit; builds the kernels from `graphite_tpu_torch/csrc/` at first use.
 Phases, one JSON line each:
 
  1. device: the card, its power limit, torch/CUDA versions;
- 2. build: the four kernels, one `nvcc` each, in parallel, and what
+ 2. build: the eight kernels, one `nvcc` each, in parallel, and what
     `-Xptxas -v` says of each (registers, spills);
  3. kernels: each kernel against its plain PyTorch version on the card,
     `torch.equal` on every output and every state tensor it updates —
@@ -46,8 +46,25 @@ Phases, one JSON line each:
     kernel device time and launches by name (one device launch a call
     for every kernel), and the device's busy share.
 
-Then the kernels line, the card's name and power limit, and last
-`{"ok": true, "device": {...}}`.  Any failure exits non-zero before the
+The memory slice (the private-L1/L2 MSI engine and the iocoom core):
+ 6. memory kernels: every kernel of the 64-tile iocoom + MSI FFT
+    companion (bench.py's coherence companion) and of a 64-tile
+    coherence stress run against its plain version, iteration by
+    iteration, and six edge families (a dirty L2 victim, NULLIFY of a
+    directory victim with sharers, line -1 victims under round-robin
+    replacement, requester_unroll = 4, two lanes storing one functional
+    word, 1024 tiles with 32 sharer words); then the four memory
+    kernels and the extended `lane_commit` timed at the companion's
+    first miss-heavy state, from that very state each call;
+ 7. card against CPU: the companion and a 16-tile stress run, every
+    SimResults field and the line census equal;
+ 8. the companion at full width: warmup and MEM_RUNS timed runs (all
+    eight kernels launched), a torch.profiler window;
+ 9. the north star: the 1024-tile FFT with its loads on MSI full_map
+    (auto directory, emesh_hop_counter, lax_barrier) once to completion.
+
+Then the kernels line (all eight), the card's name and power limit, and
+last `{"ok": true, "device": {...}}`.  Any failure exits non-zero before the
 last line.  Imports nothing of JAX or of the JAX package.  To compare
 two trees on one card, run each tree's own copy of this script in one
 call (parent, change, change, parent).
@@ -69,8 +86,13 @@ REPLACES = {
     "user_mailbox": "graphite_tpu/engine/step.py:413",
     "barrier_sync": "graphite_tpu/engine/step.py:505",
     "lane_commit": "graphite_tpu/engine/step.py:842",
+    "mem_requester": "graphite_tpu/memory/engine.py:1378",
+    "mem_home_start": "graphite_tpu/memory/engine.py:2219",
+    "mem_requester_fill": "graphite_tpu/memory/engine.py:2547",
+    "iocoom_commit": "graphite_tpu/models/iocoom.py:129",
 }
-KERNEL_ORDER = tuple(REPLACES)
+# the headline's kernels (the memory slice's are MEM_KERNELS)
+KERNEL_ORDER = tuple(REPLACES)[:4]
 TIMING_AT = {"send_phase": 200, "receive_phase": 1060}
 RUNS = 5
 
@@ -163,6 +185,7 @@ class Ctx:
     trace: object
     qend: object
     cost_table: object
+    models: object = None      # engine.step.ModelCtx of a memory/iocoom run
 
 
 def unit_args(name, ctx, st, ln):
@@ -182,7 +205,10 @@ def unit_args(name, ctx, st, ln):
         en_post = ln.en_post if "models" in p.units else st.models_enabled
         return ((ctx.trace.op, ln, freq_new, en_post, st.core, st.net,
                  st.done, st.models_enabled, ctx.qend, ctx.cost_table),
-                dict(n_follow=p.n_follow(ctx.trace.length)))
+                dict(n_follow=p.n_follow(ctx.trace.length),
+                     req=None if st.mem is None else st.mem.req,
+                     ioc_tile=(None if ctx.models is None
+                               else ctx.models.ioc_tile)))
     raise KeyError(name)
 
 
@@ -210,13 +236,16 @@ class _Pair:
     lanes: object
 
 
-def checked_iteration(ctx, st, ln, stats) -> None:
+def checked_iteration(ctx, st, ln, stats, sim=None) -> None:
     """`engine.step.subquantum_iteration`, unit by unit in its order, with
-    every kernel checked against its plain version."""
+    every kernel checked against its plain version (`sim` is needed for
+    a run with a memory subsystem or the iocoom core)."""
     from graphite_tpu_torch.engine import step
 
     units = ctx.params.units
     check_kernel("lane_fetch_cost", ctx, st, ln, stats)
+    if ctx.params.mem is not None:
+        checked_memory_engine(sim, st, ln, stats)
     if "net" in units:
         check_kernel("user_mailbox", ctx, st, ln, stats)
     if "barrier" in units:
@@ -231,6 +260,8 @@ def checked_iteration(ctx, st, ln, stats) -> None:
         step.dvfs_unit(ctx.params, st, ln)
     if "models" in units:
         step.models_unit(st, ln)
+    if ctx.params.iocoom is not None:
+        check_mem_kernel("iocoom_commit", sim, st, ln, stats)
     check_kernel("lane_commit", ctx, st, ln, stats)
     if "models" in units:
         st.models_enabled.copy_(ln.en_post)
@@ -1039,13 +1070,17 @@ def phase_profile(sim, init, start: int, wall_per_iter_s: float) -> dict:
     def block(k):
         for _ in range(k):
             subquantum_iteration(sim.params, sim.device_trace, sim.state,
-                                 qend, sim._lanes, sim._cost_table)
+                                 qend, sim._lanes, sim._cost_table,
+                                 sim.models)
         int(sim._lanes.progress.item())      # the loop's one host read
 
     block(start)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # one small op first: the device trace can miss the first
+        # launches after the profiler starts
+        torch.ones(1, device=sim.device).add_(1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         block(n)
@@ -1067,6 +1102,574 @@ def phase_profile(sim, init, start: int, wall_per_iter_s: float) -> dict:
             "busy_share_of_unprofiled_wall": (
                 busy_us * 1e-6 / (wall_per_iter_s * n) if busy_us else None),
             "kernels": kernels}
+
+
+# --- the memory slice: the 64-tile iocoom + MSI FFT companion -------------
+
+MEM_KERNELS = ("mem_requester", "mem_home_start", "mem_requester_fill",
+               "iocoom_commit")
+COMPANION_POINTS = 512
+COMPANION_CHECKED = 300     # of the companion's 768 iterations
+STRESS_CHECKED = 300
+MEM_RUNS = 2
+TINY_L2 = "[l2_cache/T1]\ncache_size = 4\nassociativity = 1\n"
+TINY_DIR = "[dram_directory]\ntotal_entries = 32\nassociativity = 2\n"
+ROUND_ROBIN = ("[l1_dcache/T1]\nreplacement_policy = round_robin\n"
+               "[l2_cache/T1]\nreplacement_policy = round_robin\n")
+UNROLL4 = "[general]\nrequester_unroll = 4\n"
+
+
+def mem_sim(n_tiles, batch, device, *, core="simple", network=None,
+            extra="", clock_scheme="lax", inner_block=64):
+    """A run of the memory slice: the benchmark scripts' config text
+    (graphite_tpu_torch/config/template.py) with shared memory on."""
+    from graphite_tpu_torch.config import ConfigFile, SimConfig
+    from graphite_tpu_torch.config.template import config_text
+    from graphite_tpu_torch.engine.simulator import Simulator
+
+    kw = {} if network is None else {"network": network}
+    text = config_text(n_tiles, core=core, shared_mem=True,
+                       clock_scheme=clock_scheme, **kw) + extra
+    return Simulator(SimConfig(ConfigFile.from_string(text)), batch,
+                     device=device, inner_block=inner_block)
+
+
+def companion(device, points=COMPANION_POINTS):
+    """bench.py's coherence companion: 64 iocoom tiles, MSI full_map,
+    emesh_hop_counter, lax, the FFT with its private loads."""
+    from graphite_tpu_torch.trace.benchmarks import fft_trace
+
+    return mem_sim(64, fft_trace(64, points_per_tile=points,
+                                 use_memory=True), device, core="iocoom")
+
+
+def memstress(n_tiles, device, n_accesses=40, extra=""):
+    """The coherence stress workload (shared_fraction 0.5, write_fraction
+    0.4): requests, evictions, INV/FLUSH/WB fan-outs, acks."""
+    from graphite_tpu_torch.trace import synthetic
+
+    return mem_sim(n_tiles, synthetic.memory_stress_trace(
+        n_tiles, n_accesses=n_accesses, working_set_bytes=1 << 13,
+        write_fraction=0.4, shared_fraction=0.5, seed=7), device,
+        extra=extra)
+
+
+def one_word_batch():
+    """Five tiles store to five lines that share one functional word (256
+    KB apart) in one iteration, twice (cold: the stores complete in the
+    fill phase; warm: in the requester phase), and tile 0 checks that the
+    word holds the highest tile's value."""
+    from graphite_tpu_torch.trace.schema import TraceBatch, TraceBuilder
+
+    bs = [TraceBuilder() for _ in range(5)]
+    bs[0].barrier_init(0, 5)
+    for b in bs:
+        b.barrier_wait(0)
+    base = 0x100000
+    for r in range(2):
+        for t, b in enumerate(bs):
+            b.store_value(base + t * (256 << 10), 10 * r + t + 1)
+        for b in bs:
+            b.barrier_wait(0)
+        bs[0].load_check(base, 10 * r + 5)
+        for b in bs:
+            b.barrier_wait(0)
+    return TraceBatch.from_builders(bs)
+
+
+def mem_call(name, sim, st, ln, plain: bool) -> None:
+    """One call of a memory-slice kernel on (st, ln): its wrapper, or its
+    plain version (on the same device)."""
+    import torch
+
+    from graphite_tpu_torch import ops
+    from graphite_tpu_torch.memory.context import MemRec
+    from graphite_tpu_torch.ops.iocoom_commit import iocoom_inputs
+
+    ctx, core, en = sim.models.mem, st.core, st.models_enabled
+    tr = sim.device_trace
+    if name == "iocoom_commit":
+        lat = None if st.mem is None else st.mem.req.slot_lat_ps
+        if plain:
+            regs, addrs, lat = iocoom_inputs(core, tr, lat)
+            ops.iocoom_commit_plain(sim.params.iocoom, st.ioc, ln,
+                                    sim.models.ioc_tile, core.clock_ps,
+                                    core.freq_mhz, regs, addrs, lat, en)
+        else:
+            ops.iocoom_commit(sim.params.iocoom, st.ioc, ln,
+                              sim.models.ioc_tile, core, tr, lat, en)
+    elif name == "mem_home_start":
+        fn = ops.mem_home_start_plain if plain else ops.mem_home_start
+        fn(ctx, st.mem, en, ln.progress)
+    elif name == "mem_requester":
+        if plain:
+            ops.mem_requester_plain(
+                ctx, st.mem, MemRec.fetch(ln, tr, core.idx), core.clock_ps,
+                core.freq_mhz.to(torch.int64), ln.active, en, ln.progress)
+        else:
+            ops.mem_requester(ctx, st.mem, ln, tr, core, en, ln.progress)
+    elif name == "mem_requester_fill":
+        if plain:
+            ops.mem_requester_fill_plain(
+                ctx, st.mem, MemRec.fetch(ln, tr, core.idx), core.clock_ps,
+                core.freq_mhz.to(torch.int64), en, ln.progress, ln.mem_ok)
+        else:
+            ops.mem_requester_fill(ctx, st.mem, ln, tr, core, en,
+                                   ln.progress, ln.mem_ok)
+    else:
+        raise KeyError(name)
+
+
+def check_mem_kernel(name, sim, st, ln, stats) -> None:
+    """`name`'s plain version on a copy of (state, lanes), its kernel on
+    the originals; every leaf of both must be equal."""
+    st2, ln2 = st.clone(), ln.clone()
+    mem_call(name, sim, st2, ln2, plain=True)
+    mem_call(name, sim, st, ln, plain=False)
+    err = max_abs_err(_Pair(st, ln), _Pair(st2, ln2), name)
+    stats[name]["checks"] += 1
+    stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    if err:
+        raise AssertionError(f"{name}: kernel != plain version "
+                             f"(max abs err {err})")
+
+
+def checked_memory_engine(sim, st, ln, stats) -> None:
+    """`memory.engine.memory_engine_step` as the card runs it, its three
+    kernels checked against their plain versions."""
+    import torch
+
+    from graphite_tpu_torch.memory import engine as me
+
+    mctx, en = sim.models.mem, st.models_enabled
+    check_mem_kernel("mem_requester", sim, st, ln, stats)
+    me.home_evictions(mctx, st.mem, en, ln.progress)
+    check_mem_kernel("mem_home_start", sim, st, ln, stats)
+    me.sharer_step(mctx, st.mem, mctx.cycle_ps(st.core.freq_mhz, en), en,
+                   ln.progress)
+    me.home_acks_and_finish(mctx, st.mem, en, ln.progress)
+    check_mem_kernel("mem_requester_fill", sim, st, ln, stats)
+
+
+def sim_ctx(sim):
+    return Ctx(sim.params, sim.device_trace, sim_qend(sim), sim._cost_table,
+               sim.models)
+
+
+def miss_heavy(sim, st) -> bool:
+    """Whether at least half the lanes, idle, stand at a record with a
+    memory operand (the companion's cold loads)."""
+    import torch
+
+    from graphite_tpu_torch.trace.schema import FLAG_MEM0_VALID
+
+    tr = sim.device_trace
+    col = torch.clamp(st.core.idx, max=tr.length - 1).to(torch.int64)
+    flags = torch.gather(tr.flags, 1, col[:, None])[:, 0]
+    n = int(((flags & FLAG_MEM0_VALID) != 0)
+            .logical_and(st.mem.req.phase == 0).logical_and(~st.done).sum())
+    return 2 * n >= st.done.shape[0]
+
+
+def run_checked(sim, n_max, stats, on_state=None) -> int:
+    """Up to `n_max` checked iterations of `sim` (lax: one quantum), or
+    until every tile is done; `on_state(i, st, ln)` sees the state
+    before iteration i.  Returns the iterations run."""
+    ctx = sim_ctx(sim)
+    st, ln = sim.state, sim._lanes
+    for i in range(n_max):
+        if on_state is not None:
+            on_state(i, st, ln)
+        checked_iteration(ctx, st, ln, stats, sim=sim)
+        if bool(st.done.all()):
+            return i + 1
+    return n_max
+
+
+def mem_edge_cases(dev, stats) -> dict:
+    """Hand-made states of the memory slice, every iteration checked.
+    Returns each case's iterations and the counter that shows its path
+    was taken."""
+    import torch
+
+    from graphite_tpu_torch.trace import synthetic
+
+    out = {}
+
+    def total(sim, name):
+        return int(getattr(sim.state.mem.counters, name).sum())
+
+    sim = memstress(16, dev, n_accesses=60, extra=TINY_L2)
+    out["dirty_l2_victim"] = {"iterations": run_checked(sim, 2000, stats),
+                              "dram_writes": total(sim, "dram_writes")}
+    sim = memstress(16, dev, n_accesses=60, extra=TINY_DIR)
+    out["nullify_with_sharers"] = {
+        "iterations": run_checked(sim, 2000, stats),
+        "dir_accesses": total(sim, "dir_accesses"),
+        "l2_misses": total(sim, "l2_misses")}
+    sim = memstress(16, dev, n_accesses=60, extra=ROUND_ROBIN)
+    out["line_minus_one_round_robin"] = {
+        "iterations": run_checked(sim, 2000, stats),
+        "evictions": total(sim, "evictions")}
+    sim = mem_sim(16, synthetic.memory_stress_trace(
+        16, n_accesses=60, working_set_bytes=1 << 9, write_fraction=0.3,
+        seed=3), dev, extra=UNROLL4)
+    out["requester_unroll_4"] = {"iterations": run_checked(sim, 2000, stats),
+                                 "l1d_hits": total(sim, "l1d_read_hits")
+                                 + total(sim, "l1d_write_hits")}
+    sim = mem_sim(5, one_word_batch(), dev, network="magic")
+    out["two_lanes_one_word"] = {
+        "iterations": run_checked(sim, 2000, stats),
+        "func_errors": int(sim.state.mem.func_errors)}
+    sim = memstress(1024, dev, n_accesses=6)
+    out["tiles_1024_sw32"] = {"iterations": run_checked(sim, 60, stats),
+                              "sharer_words": sim.params.mem.sharer_words}
+    del sim
+    torch.cuda.empty_cache()
+    # each case's counter must show that its path was taken
+    shown = {"dirty_l2_victim": "dram_writes",
+             "nullify_with_sharers": "dir_accesses",
+             "line_minus_one_round_robin": "evictions",
+             "requester_unroll_4": "l1d_hits",
+             "tiles_1024_sw32": "iterations"}
+    bad = [k for k, n in shown.items() if out[k][n] <= 0]
+    if out["nullify_with_sharers"]["dir_accesses"] <= out[
+            "nullify_with_sharers"]["l2_misses"]:
+        bad.append("nullify_with_sharers: no NULLIFY")
+    if out["two_lanes_one_word"]["func_errors"] != 0:
+        bad.append("two_lanes_one_word: the word lost the highest lane")
+    if bad:
+        raise AssertionError(f"memory edge cases missed their path: {bad}")
+    return out
+
+
+def kernel_tensors(name, sim, ctx, st, ln) -> list:
+    """The tensors a call of `name` binds at (st, ln)."""
+    import importlib
+
+    mod = importlib.import_module(f"graphite_tpu_torch.ops.{name}")
+    core, en = st.core, st.models_enabled
+    if name == "lane_commit":
+        a, k = unit_args(name, ctx, st, ln)
+        args = mod.bound_args(*a, k["n_follow"], k["req"], k["ioc_tile"])
+    elif name == "iocoom_commit":
+        args = mod.bound_args(sim.params.iocoom, st.ioc, ln,
+                              sim.models.ioc_tile, core, sim.device_trace,
+                              st.mem.req.slot_lat_ps, en)
+    elif name == "mem_home_start":
+        args = mod.bound_args(sim.models.mem, st.mem, en, ln.progress)
+    elif name == "mem_requester":
+        args = mod.bound_args(sim.models.mem, st.mem, ln, sim.device_trace,
+                              core, en, ln.progress)
+    else:
+        args = mod.bound_args(sim.models.mem, st.mem, ln, sim.device_trace,
+                              core, en, ln.progress, ln.mem_ok)
+    return [t for t in args[0] if t is not None]
+
+
+def fresh_times(name, sim, ctx, st, ln) -> dict:
+    """Times of one call from this very state: every tensor the kernel
+    binds is restored before each call, and the restores' own time is
+    measured alone and taken off.  `ms` = device time (CUDA graphs of 100
+    calls), `call_ms` = the eager call's host time, `plain_ms` = the
+    plain version until the card finished it."""
+    from graphite_tpu_torch import ops
+
+    tensors = kernel_tensors(name, sim, ctx, st, ln)
+    saved = [t.clone() for t in tensors]
+
+    def restore():
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+
+    if name == "lane_commit":
+        a, k = unit_args(name, ctx, st, ln)
+
+        def call():
+            ops.lane_commit(*a, **k)
+
+        def plain():
+            ops.lane_commit_plain(*a, k["n_follow"], req=k["req"],
+                                  ioc_tile=k["ioc_tile"])
+    else:
+        def call():
+            mem_call(name, sim, st, ln, plain=False)
+
+        def plain():
+            mem_call(name, sim, st, ln, plain=True)
+
+    def both(f):
+        def g():
+            restore()
+            f()
+        return g
+
+    out = {"ms": graph_ms(both(call)) - graph_ms(restore),
+           "call_ms": host_ms(call, restore, 50, sync=False),
+           "plain_ms": host_ms(plain, restore, 10, sync=True)}
+    restore()
+    return out
+
+
+def host_ms(fn, restore, n: int, sync: bool) -> float:
+    """Median host time of one call from the restored state: the eager
+    call until it returns (`sync` False: the enqueue, the host's share)
+    or until the card finished it (`sync` True)."""
+    import torch
+
+    times = []
+    for _ in range(n + 2):
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if sync:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    times = sorted(times[2:])
+    return times[len(times) // 2] * 1e3
+
+
+def mem_bound(name, sim, st, ln) -> tuple:
+    """(bound_ms, bound_by, bytes, ops) of one call at this state: each
+    input byte the call needs read once, each output written once,
+    counted from this state's data (which lanes start, pop, fill or
+    commit)."""
+    import torch
+
+    from graphite_tpu_torch.memory.common import next_present_slot
+    from graphite_tpu_torch.memory.common import slots_present
+
+    mp = sim.params.mem
+    T = sim.params.n_tiles
+    ms, en = st.mem, st.models_enabled
+    n = lambda m: int(m.sum())  # noqa: E731
+    if name == "mem_requester":
+        present = slots_present(mp, ln.op, ln.flags, en)
+        start = n(ln.active & (ms.req.phase == 0)
+                  & (next_present_slot(present, ms.req.slot) < 3))
+        rows = 8 * (mp.l1i.num_ways + mp.l1d.num_ways + mp.l2.num_ways)
+        nbytes = T * 20 + start * (2 * rows + 110 + 60 + 13 + 8)
+    elif name == "mem_home_start":
+        live = ms.mail.req_type != 0
+        homes = torch.unique(ms.mail.req_home[live]).numel()
+        homes += n(ms.txn.saved_valid & ~ms.txn.active)
+        nbytes = T * 13 + T * 2 + homes * (
+            mp.dir_ways * 8 + 2 * mp.sharer_words * 4 + 8 + 100)
+    elif name == "mem_requester_fill":
+        fills = n((ms.req.phase == 1) & (ms.mail.rep_type != 0))
+        rows = 8 * (mp.l2.num_ways + mp.l1d.num_ways)
+        nbytes = T * 20 + fills * (2 * rows + 80)
+    elif name == "iocoom_commit":
+        instr = ln.op < 15
+        commit = n(ln.active & instr & ln.mem_ok & sim.models.ioc_tile)
+        p = sim.params.iocoom
+        rings = 8 * (p.num_load_queue_entries
+                     + 2 * p.num_store_queue_entries)
+        nbytes = T * 30 + commit * (60 + 18 + rings + 50)
+    else:
+        return bound(name, sim, st, ln)
+    return (nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes, 0)
+
+
+def time_mem_kernels(sim, st, ln) -> dict:
+    """At the miss-heavy state: each memory-slice kernel and the extended
+    `lane_commit`, in the step's order, timed from the state it meets,
+    then the unit run to advance the state."""
+    from graphite_tpu_torch.engine import step
+    from graphite_tpu_torch.memory import engine as me
+
+    ctx = sim_ctx(sim)
+    mctx, en = sim.models.mem, st.models_enabled
+    out = {}
+
+    def timed(name):
+        out[name] = fresh_times(name, sim, ctx, st, ln)
+        b_ms, b_by, nbytes, nops = mem_bound(name, sim, st, ln)
+        out[name].update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                         ops=nops)
+
+    dummy = {k: {"checks": 0, "max_abs_err": 0}
+             for k in KERNEL_ORDER + MEM_KERNELS}
+    check_kernel("lane_fetch_cost", ctx, st, ln, dummy)
+    timed("mem_requester")
+    mem_call("mem_requester", sim, st, ln, plain=False)
+    me.home_evictions(mctx, st.mem, en, ln.progress)
+    timed("mem_home_start")
+    mem_call("mem_home_start", sim, st, ln, plain=False)
+    me.sharer_step(mctx, st.mem, mctx.cycle_ps(st.core.freq_mhz, en), en,
+                   ln.progress)
+    me.home_acks_and_finish(mctx, st.mem, en, ln.progress)
+    timed("mem_requester_fill")
+    mem_call("mem_requester_fill", sim, st, ln, plain=False)
+    units = sim.params.units
+    if "net" in units:
+        check_kernel("user_mailbox", ctx, st, ln, dummy)
+    if "barrier" in units:
+        check_kernel("barrier_sync", ctx, st, ln, dummy)
+    if "models" in units:
+        step.models_unit(st, ln)
+    timed("iocoom_commit")
+    mem_call("iocoom_commit", sim, st, ln, plain=False)
+    timed("lane_commit")
+    return out
+
+
+def phase_memory_kernels(dev, stats) -> dict:
+    """Checked iterations of the companion and of a 64-tile memstress run,
+    the memory edge cases, and the kernels' times at the companion's
+    first miss-heavy state."""
+    import torch
+
+    sim = companion(dev)
+    found = {}
+
+    def watch(i, st, ln):
+        if "at" not in found and miss_heavy(sim, st):
+            found["at"] = i
+            found["state"] = (st.clone(), ln.clone())
+
+    t0 = time.perf_counter()
+    n_comp = run_checked(sim, COMPANION_CHECKED, stats, watch)
+    stress = memstress(64, dev)
+    n_stress = run_checked(stress, STRESS_CHECKED, stats)
+    torch.cuda.synchronize()
+    checked_s = time.perf_counter() - t0
+    cases = mem_edge_cases(dev, stats)
+    if "at" not in found:
+        raise AssertionError("no checked companion iteration is miss-heavy")
+    sim.state, sim._lanes = found["state"]
+    timings = time_mem_kernels(sim, *found["state"])
+    return {"companion_checked": n_comp, "memstress64_checked": n_stress,
+            "checked_s": checked_s, "miss_heavy_at": found["at"],
+            "edge_cases": cases, "timings": timings}
+
+
+def phase_memory_end_to_end(dev, card: str) -> None:
+    """The companion and a 16-tile memstress run on the card and on the
+    CPU: every SimResults field, n_quanta, last_n_iterations and the
+    line census equal."""
+    cases = (("companion64", lambda d: companion(d)),
+             ("memstress16", lambda d: memstress(16, d, n_accesses=200)))
+    for name, build in cases:
+        res = {}
+        for where in (dev, "cpu"):
+            sim = build(where)
+            t0 = time.perf_counter()
+            r = sim.run()
+            lines = sorted({int(x) for x in sim.state.mem.req.line.cpu()})
+            res[str(where)] = (r, sim.last_n_iterations,
+                               time.perf_counter() - t0,
+                               sim.line_census(lines[:64]))
+        (rc, ic, wc, cc), (rp, ip, wp, cp) = res[str(dev)], res["cpu"]
+        bad = [f for f in RESULT_FIELDS
+               if not result_field_equal(getattr(rc, f), getattr(rp, f))]
+        if ic != ip:
+            bad.append("last_n_iterations")
+        if cc != cp:
+            bad.append("line_census")
+        emit({"phase": "memory_end_to_end", "case": name, "card": card,
+              "equal": not bad, "bad": bad, "iterations": ic,
+              "n_quanta": rc.n_quanta, "card_s": wc, "cpu_s": wp,
+              "total_instructions": rc.total_instructions,
+              "l2_misses": int(rc.mem_counters["l2_misses"].sum())})
+        if bad:
+            raise AssertionError(f"card != cpu on {name}: {bad}")
+
+
+def result_field_equal(a, b) -> bool:
+    if isinstance(a, dict) or isinstance(b, dict):
+        if a is None or b is None or a.keys() != b.keys():
+            return a is b
+        return all(field_equal(a[k], b[k]) for k in a)
+    return field_equal(a, b)
+
+
+def phase_companion(dev) -> dict:
+    """The companion at full width: warmup, then MEM_RUNS timed runs from
+    one initial state, every launch count set to 0 just before each and
+    read just after; every kernel of the path must launch."""
+    import torch
+
+    from graphite_tpu_torch import ops
+
+    sim = companion(dev)
+    init = sim.state._map(lambda t: t.to("cpu", copy=True))
+    t0 = time.perf_counter()
+    sim.warmup()
+    warm_s = time.perf_counter() - t0
+    walls = []
+    for _ in range(MEM_RUNS):
+        sim.state = init._map(lambda t: t.to(dev, copy=True))
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = sim.run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        missing = [k for k in KERNEL_ORDER + MEM_KERNELS if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"companion never launched {missing}")
+    if not bool(sim.state.done.all()):
+        raise AssertionError("companion: not every tile is done")
+    med = sorted(walls)[len(walls) // 2]
+    iters = sim.last_n_iterations
+    return {
+        "tiles": 64, "points_per_tile": COMPANION_POINTS, "runs": MEM_RUNS,
+        "wall_s": walls, "wall_s_median": med, "warmup_s": warm_s,
+        "sim_instr_per_s_median": r.total_instructions / med,
+        "us_per_iteration_median": med / iters * 1e6,
+        "total_instructions": r.total_instructions,
+        "completion_time_ps": r.completion_time_ps, "iterations": iters,
+        "n_quanta": r.n_quanta,
+        "l2_misses": int(r.mem_counters["l2_misses"].sum()),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "launches": counts,
+    }, sim, init
+
+
+def phase_north_star(dev) -> dict:
+    """The 1024-tile FFT with its loads on the simple core, MSI full_map
+    with the auto-sized directory, emesh_hop_counter, lax_barrier, run
+    once to completion through the port's own loop."""
+    import torch
+
+    from graphite_tpu_torch import ops
+    from graphite_tpu_torch.trace.benchmarks import fft_trace
+
+    t0 = time.perf_counter()
+    batch = fft_trace(1024, points_per_tile=2048, use_memory=True)
+    sim = mem_sim(1024, batch, dev, clock_scheme="lax_barrier")
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not bool(sim.state.done.all()):
+        raise AssertionError("north star: not every tile is done")
+    mp = sim.params.mem
+    return {"tiles": 1024, "points_per_tile": 2048, "setup_s": setup_s,
+            "wall_s": wall, "iterations": sim.last_n_iterations,
+            "n_quanta": r.n_quanta,
+            "total_instructions": r.total_instructions,
+            "completion_time_ps": r.completion_time_ps,
+            "sim_instr_per_s": r.total_instructions / wall,
+            "l2_misses": int(r.mem_counters["l2_misses"].sum()),
+            "dir_sets": mp.dir_sets, "dir_ways": mp.dir_ways,
+            "sharer_words": mp.sharer_words,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "launches": ops.launch_counts()}
+
+
+def is_kernel(key: str, name: str) -> bool:
+    """Whether a profiler key names `name`'s kernel (a template
+    instantiation's key starts with its return type)."""
+    return key.removeprefix("void ").startswith(name + "_kernel")
 
 
 def ptxas_summary(logs: dict) -> dict:
@@ -1106,7 +1709,8 @@ def main() -> int:
     from graphite_tpu_torch.trace.benchmarks import fft_trace
 
     batch = fft_trace(1024, points_per_tile=2048)
-    stats = {k: {"checks": 0, "max_abs_err": 0} for k in KERNEL_ORDER}
+    stats = {k: {"checks": 0, "max_abs_err": 0}
+             for k in KERNEL_ORDER + MEM_KERNELS}
     kinfo = phase_kernels(dev, batch, stats)
     for name in KERNEL_ORDER:
         row = {"phase": "kernel", "name": name, "card": smi,
@@ -1139,20 +1743,56 @@ def main() -> int:
         emit({"phase": "profile", "state": state, "card": smi, **prof})
         for name in KERNEL_ORDER:
             one = {k: v["launches"] for k, v in prof["kernels"].items()
-                   if k.startswith(name + "_kernel")}
+                   if is_kernel(k, name)}
             if list(one.values()) != [prof["iterations"]]:
                 raise AssertionError(f"{name}: device launches {one} in "
                                      f"{prof['iterations']} calls")
 
+    # the memory slice: the 64-tile iocoom + MSI FFT companion
+    minfo = phase_memory_kernels(dev, stats)
+    for name in MEM_KERNELS + ("lane_commit",):
+        t = minfo["timings"][name]
+        emit({"phase": "memory_kernel", "name": name, "card": smi,
+              "checks_equal": stats[name]["checks"],
+              "miss_heavy": {"us": t["ms"] * 1e3,
+                             "call_us": t["call_ms"] * 1e3,
+                             "plain_us": t["plain_ms"] * 1e3,
+                             "bound_us": t["bound_ms"] * 1e3,
+                             "bytes": t["bytes"]}})
+    emit({"phase": "memory_kernels_checked", "card": smi,
+          **{k: v for k, v in minfo.items() if k != "timings"}})
+    phase_memory_end_to_end(dev, smi)
+    comp, csim, cinit = phase_companion(dev)
+    emit({"phase": "companion", "card": smi, **comp})
+    at = minfo["miss_heavy_at"]
+    start = at // csim.params.inner_block * csim.params.inner_block
+    prof = phase_profile(csim, cinit, start,
+                         comp["wall_s_median"] / comp["iterations"])
+    emit({"phase": "companion_profile", "card": smi, **prof})
+    # one device launch a call; the device trace drops the window's first
+    # launch of some kernels (observed for the first two of the
+    # companion's iteration, never in the headline's windows)
+    for name in KERNEL_ORDER + MEM_KERNELS:
+        one = [v["launches"] for k, v in prof["kernels"].items()
+               if is_kernel(k, name)]
+        n = prof["iterations"]
+        if len(one) != 1 or not n - 1 <= one[0] <= n:
+            raise AssertionError(f"{name}: device launches {one} in "
+                                 f"{n} companion calls")
+    del csim, cinit
+    torch.cuda.empty_cache()
+    emit({"phase": "north_star", "card": smi, **phase_north_star(dev)})
+
     rows = []
     send = kinfo["timings"]["send_phase"]
-    for name in KERNEL_ORDER:
-        tm = send[name]
+    for name in KERNEL_ORDER + MEM_KERNELS:
+        mem = name in MEM_KERNELS
+        tm = minfo["timings"][name] if mem else send[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": ops.KERNELS[name].source,
             "replaces": REPLACES[name],
-            "launches": full["launches"][name],
+            "launches": (comp if mem else full)["launches"][name],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],

@@ -1,15 +1,16 @@
 """numpy <-> port conversions: carry a JAX run's trace and state across.
 
-The analog of converting a checkpoint's weights between frameworks.  All
-three functions speak plain numpy, so this package still imports nothing
-of JAX:
+The analog of converting a checkpoint's weights between frameworks.  The
+functions speak plain numpy, so this package still imports nothing of
+JAX:
 
  - `trace_from_arrays({field: ndarray})` builds the port's `TraceBatch`
    from the numpy fields of any TraceBatch (the JAX package's, a loaded
    `.npz`, or a dict);
  - `state_from_arrays(tree, device)` builds the port's `SimState` from a
    `jax.device_get` of a JAX `SimState` — any object or mapping with the
-   same field names and numpy leaves;
+   same field names and numpy leaves — memory (`MemState`, the private-
+   L2 engine's) and iocoom (`IocoomState`) state included;
  - `state_to_arrays(state)` is the inverse: a nested dict of numpy arrays
    with the JAX leaves' names, dtypes and shapes.
 
@@ -28,20 +29,39 @@ import torch
 from graphite_tpu_torch.engine.state import (
     CoreState, DvfsState, SimState, SyncState, UserNetState,
 )
+from graphite_tpu_torch.memory.state import (
+    CacheArrays, DirectoryArrays, MemCounters, MemMailboxes, MemState,
+    RequesterState, TxnState,
+)
+from graphite_tpu_torch.models.iocoom import IocoomState
 from graphite_tpu_torch.trace.schema import _FIELDS, TraceBatch
 
 # SimState leaves of subsystems this package has not ported, with the
 # ROADMAP.md queue-1 item that ports each
 _UNPORTED = {
-    "mem": 6, "noc_user": 9, "ioc": 7, "telemetry": 12, "profile": 12,
-    "dvfs_rt": 10, "hist": 12,
+    "noc_user": 9, "telemetry": 12, "profile": 12, "dvfs_rt": 10, "hist": 12,
 }
+# uint32 words the port holds as int32 bit patterns (memory/state.py); the
+# other uint32 leaves (miss types, line utilization, the functional
+# store) become int64
+_INT32_WORDS = ("sharers", "pending")
 
 
 def _get(tree, name, default=None):
     if isinstance(tree, Mapping):
         return tree.get(name, default)
     return getattr(tree, name, default)
+
+
+# (dataclass, field) -> the dataclass of a nested node
+_SUBTREES = {
+    ("MemState", "l1i"): CacheArrays, ("MemState", "l1d"): CacheArrays,
+    ("MemState", "l2"): CacheArrays,
+    ("MemState", "directory"): DirectoryArrays,
+    ("MemState", "txn"): TxnState, ("MemState", "mail"): MemMailboxes,
+    ("MemState", "req"): RequesterState,
+    ("MemState", "counters"): MemCounters,
+}
 
 
 def trace_from_arrays(arrays) -> TraceBatch:
@@ -60,22 +80,45 @@ def trace_from_arrays(arrays) -> TraceBatch:
     return TraceBatch(**out)
 
 
-def _leaf(a, device) -> torch.Tensor:
+def _leaf(a, device, name="") -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.uint32:
-        # the port keeps no uint32 tensors (see engine/state.py)
-        a = a.astype(np.int64)
+        # the port keeps no uint32 tensors (engine/state.py, memory/state.py)
+        a = a.view(np.int32) if name in _INT32_WORDS else a.astype(np.int64)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def _node(cls, tree, device):
+def _node(cls, tree, device, optional=()):
+    """`cls` from the same-named leaves (or sub-dataclasses) of `tree`."""
     kwargs = {}
     for f in dataclasses.fields(cls):
         v = _get(tree, f.name)
         if v is None:
+            if f.name in optional:
+                kwargs[f.name] = None
+                continue
             raise KeyError(f"{cls.__name__}.{f.name} missing")
-        kwargs[f.name] = _leaf(v, device)
+        sub = _SUBTREES.get((cls.__name__, f.name))
+        kwargs[f.name] = (_node(sub, v, device) if sub is not None
+                          else _leaf(v, device, f.name))
     return cls(**kwargs)
+
+
+def mem_state_from_arrays(tree, device):
+    """The port's MemState from a JAX MemState's numpy leaves (the private-
+    L2 engine's).  The JAX-only leaves (`live`, `phase_skips`, the
+    hop-by-hop `noc`) are dropped; staged directory writes must have been
+    flushed (the port writes the directory in place)."""
+    d = _get(tree, "directory")
+    skey = _get(d, "skey")
+    if skey is not None and bool(np.any(np.asarray(skey) >= 0)):
+        raise ValueError("the JAX state holds staged directory writes: "
+                         "flush them (dir_stage_flush) before converting")
+    if _get(tree, "noc") is not None:
+        raise NotImplementedError(
+            "MemState.noc belongs to the hop-by-hop memory net, not ported "
+            "yet (ROADMAP.md queue 1, item 9)")
+    return _node(MemState, tree, device, optional=("l2_util", "mt"))
 
 
 def state_from_arrays(tree, device) -> SimState:
@@ -87,6 +130,8 @@ def state_from_arrays(tree, device) -> SimState:
                 f"(ROADMAP.md queue 1, item {item})")
     dvfs = _get(tree, "dvfs")
     p2p = _get(tree, "p2p_round")
+    mem = _get(tree, "mem")
+    ioc = _get(tree, "ioc")
     return SimState(
         core=_node(CoreState, _get(tree, "core"), device),
         net=_node(UserNetState, _get(tree, "net"), device),
@@ -95,6 +140,8 @@ def state_from_arrays(tree, device) -> SimState:
         done=_leaf(_get(tree, "done"), device),
         dvfs=None if dvfs is None else _node(DvfsState, dvfs, device),
         p2p_round=None if p2p is None else _leaf(p2p, device),
+        mem=None if mem is None else mem_state_from_arrays(mem, device),
+        ioc=None if ioc is None else _node(IocoomState, ioc, device),
     )
 
 

@@ -1,11 +1,17 @@
 // lane_commit: per-lane commit of one subquantum iteration.
 //
 // Replaces (XLA unit): graphite_tpu/engine/step.py:842-915 (the advance
-// mask and the clock's max/where chain), :999-1066 (plain-run batching:
-// the [T, KX] follow-on gather, cumsum against qend and cumprod), and
-// :1098-1140 + :1141-1151 + :1204 (the counters, the one-bit predictor
-// write, the network counters, the progress sum) for the memoryless
-// simple core.  Plain version: graphite_tpu_torch/ops/lane_commit.py.
+// mask and the clock's max/where chain, with the memory subsystem's
+// mem_ok and latency and the iocoom tiles' clock), :999-1066 (plain-run
+// batching: the [T, KX] follow-on gather, cumsum against qend and
+// cumprod), :1098-1140 + :1141-1151 + :1204 (the counters, the one-bit
+// predictor write, the network counters, the progress sum) and
+// :1179-1180 (the memory slot reset of a committed record).  Plain
+// version: graphite_tpu_torch/ops/lane_commit.py.
+//
+// The memory and iocoom inputs are optional pointers: the memoryless
+// simple core passes them null and launches the MODELS = false
+// instantiation, the kernel as it was before they existed.
 //
 // Design: one thread a lane, in CTAs of THREADS = 64 so that the lanes'
 // loads spread over 16 SMs at T = 1024, with no load behind another that
@@ -90,6 +96,17 @@ struct CommitArgs {
     const bool* enabled;
     const int64_t* qend;
     const int64_t* cost_table;
+    // memory subsystem (null without one)
+    const bool* mem_ok;
+    int32_t* req_slot;
+    int64_t* req_acc;          // read (the record's latency), then reset
+    int64_t* req_slot_lat;     // [T, 3]
+    // iocoom tiles (null without the iocoom core)
+    const bool* ioc_tile;
+    const int64_t* ioc_clock;
+    const int64_t* ioc_mem_stall;
+    const int64_t* ioc_exec_stall;
+    int64_t* memory_stall;     // null for the memoryless simple core
     int64_t T, L, B, KX;
 };
 
@@ -124,6 +141,10 @@ __device__ __forceinline__ void load_window(const uint8_t* p, int n,
         win[k] = k < n ? (uint8_t)(u[k >> 2] >> ((k & 3) * 8)) : OP_NOP;
 }
 
+// MODELS: the run has a memory subsystem or the iocoom core (the nine
+// optional pointers are read); without, the memoryless instantiation is
+// the kernel as it was before they existed.
+template <bool MODELS>
 __global__ void __launch_bounds__(THREADS)
 lane_commit_kernel(const CommitArgs a) {
     const int T = (int)a.T, L = (int)a.L, B = (int)a.B, KX = (int)a.KX;
@@ -165,6 +186,16 @@ lane_commit_kernel(const CommitArgs a) {
     const int64_t n_lat = a.total_latency_ps[u];
     const bool en_post = *a.en_post, en = *a.enabled;
     const int64_t q = *a.qend;
+    const bool has_mem = MODELS && a.req_acc != nullptr;
+    const bool has_ioc = MODELS && a.ioc_tile != nullptr;
+    const bool mem_ok = has_mem ? a.mem_ok[u] : true;
+    const int64_t mem_acc = has_mem ? a.req_acc[u] : 0;
+    const bool ioc = has_ioc && a.ioc_tile[u];
+    const int64_t ioc_clock = has_ioc ? a.ioc_clock[u] : 0;
+    const int64_t ioc_mem = has_ioc ? a.ioc_mem_stall[u] : 0;
+    const int64_t ioc_exec = has_ioc ? a.ioc_exec_stall[u] : 0;
+    const int64_t n_mem = (MODELS && a.memory_stall) ? a.memory_stall[u]
+                                                      : 0;
     const int i0 = clamp_i32(idx, 0, L - 1);
     uint8_t win[KX_MAX];
     load_window(a.trace_op + (size_t)u * L + i0 + 1,
@@ -183,13 +214,21 @@ lane_commit_kernel(const CommitArgs a) {
         op == OP_DVFS_SET || op == OP_DVFS_GET || op == OP_SYSCALL ||
         op == OP_COND_INIT;
     const bool dyn_plain = is_dynamic && !is_spawn;
-    const bool costed = is_static || is_branch || is_bblock || dyn_plain ||
+    const bool instr_like = is_static || is_branch;
+    // an instruction record with memory slots commits once they completed
+    const bool costed = ((instr_like || is_bblock) && mem_ok) || dyn_plain ||
                         simple_event || is_send;
     const bool advance = live &&
         ((act && costed) || recv_now || released || (act && is_spawn) ||
          granted || join_now || others || bsync || cjoin);
+    // an iocoom tile's instruction record takes iocoom_commit's clock
+    const bool simple_instr = instr_like && !ioc;
+    const bool mem_paid = simple_instr || is_bblock;
 
-    int64_t c = (advance && costed) ? clock0 + cost : clock0;
+    int64_t c = (advance && (mem_paid || dyn_plain || simple_event || is_send))
+                    ? clock0 + cost + (mem_paid ? mem_acc : 0)
+                    : clock0;
+    if (advance && instr_like && ioc) c = ioc_clock;
     if (act && is_spawn) c = max64(c, dyn);
     if (recv_now) c = max64(c, recv_time);
     if (released) c = max64(c, release_time);
@@ -238,8 +277,18 @@ lane_commit_kernel(const CommitArgs a) {
             ((advance && is_bblock && en) ? (int64_t)aux0 : 0) +
             (int64_t)recv_charged + (int64_t)sync_charged;
         a.execution_stall_ps[t] =
-            n_exec + extra_cost +
-            ((advance && (is_static || is_branch || is_bblock)) ? cost : 0);
+            n_exec + extra_cost + ((advance && mem_paid) ? cost : 0) +
+            ioc_exec;
+        if (MODELS && a.memory_stall)
+            a.memory_stall[t] =
+                n_mem + ((advance && mem_paid) ? mem_acc : 0) + ioc_mem;
+        if (has_mem && advance) {
+            a.req_slot[t] = 0;
+            a.req_acc[t] = 0;
+            a.req_slot_lat[(size_t)t * 3] = 0;
+            a.req_slot_lat[(size_t)t * 3 + 1] = 0;
+            a.req_slot_lat[(size_t)t * 3 + 2] = 0;
+        }
         a.recv_instructions[t] = n_recv_i + (int64_t)recv_charged;
         a.recv_stall_ps[t] = n_recv_s + (recv_charged ? recv_wait : 0);
         a.sync_instructions[t] = n_sync_i + (int64_t)sync_charged;
@@ -266,10 +315,13 @@ lane_commit_kernel(const CommitArgs a) {
 
 extern "C" int gt_lane_commit(const CommitArgs* args,
                               cudaStream_t stream) {
-    static_assert(sizeof(CommitArgs) == 52 * 8,
-                  "CommitArgs: 48 pointers and 4 int64");
+    static_assert(sizeof(CommitArgs) == 61 * 8,
+                  "CommitArgs: 57 pointers and 4 int64");
     const int T = (int)args->T;
-    lane_commit_kernel<<<(T + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
-        *args);
+    const int blocks = (T + THREADS - 1) / THREADS;
+    if (args->memory_stall)
+        lane_commit_kernel<true><<<blocks, THREADS, 0, stream>>>(*args);
+    else
+        lane_commit_kernel<false><<<blocks, THREADS, 0, stream>>>(*args);
     return (int)cudaGetLastError();
 }

@@ -1,0 +1,264 @@
+// mem_home_start: phase 3 of the memory engine, the homes' transaction
+// starts (MSI, full_map directory).
+//
+// Replaces (XLA unit): graphite_tpu/memory/engine.py:2219-2546
+// (`_home_starts`, the MSI full_map branches: resume a saved request or
+// pop the earliest one, directory lookup / allocation with NULLIFY of a
+// full set's fewest-sharer victim, the immediate finishes with their
+// DRAM or buffered reply, and the INV / FLUSH / WB fan-out into the FWD
+// matrix) with :195-224 (`_req_earliest`, `_req_consume`).  Plain
+// version: graphite_tpu_torch/ops/mem_home_start.py.
+//
+// Bound: bytes.  A starting home reads its directory set (DW packed
+// words, 128 B at DW = 16), one entry's sharer words (SW * 4 B, 128 B at
+// T = 1024), writes one entry and at most T FWD cells (13 B each); every
+// CTA also reads the T request cells (13 B each) for the election.
+//
+// Design: one thread a home, HOMES homes a CTA.  The election is the JAX
+// segment-min: each CTA's threads walk the T requester cells together and
+// fold every live request addressed to one of the CTA's homes into a
+// shared-memory atomicMin of time * T + requester (the lowest key wins,
+// the key order of `_req_earliest`); after one barrier each home reads
+// its winner.  Every write then belongs to its home: its directory set,
+// its transaction, its FWD column fwd[sharer, home], the popped
+// requester's request cell and the replied requester's reply cell (a
+// requester has one outstanding miss, so one home pops and replies to
+// it).  The victim entry's sharer words are read for the reply and the
+// fan-out before the entry is rewritten in place; a fan-out walks the
+// set bits of the pending words with __ffs.
+#include "mem_common.cuh"
+
+#define HOMES 128
+#define FAR (1ULL << 62)
+#define TAG_MASK ((1LL << 34) - 1)
+#define ID_MASK ((1LL << 13) - 1)
+#define STATE_SHIFT 34
+#define OWNER_SHIFT 37
+#define NSH_SHIFT 50
+
+// Argument block = graphite_tpu_torch/ops/mem_home_start.py `_pack`.
+struct HomeArgs {
+    const bool* enabled;
+    int32_t* progress;
+    int64_t* entry;            // [T, DS, DW]
+    int32_t* sharers;          // [T, DS, DW * SW]
+    uint8_t* req_type;
+    const int32_t* req_home;
+    const int32_t* req_line;
+    const int64_t* req_time;
+    uint8_t* rep_type;
+    int64_t* rep_time;
+    uint8_t* fwd_type;         // [T(sharer), T(home)]
+    int32_t* fwd_line;
+    int64_t* fwd_time;
+    bool* active;
+    uint8_t* mtype;
+    int32_t* line;
+    int32_t* requester;
+    int64_t* time_ps;
+    bool* data_cached;
+    bool* saved_valid;
+    uint8_t* saved_type;
+    int32_t* saved_line;
+    int32_t* saved_requester;
+    int64_t* saved_time_ps;
+    int32_t* last_line;
+    int64_t* last_done_ps;
+    int32_t* cdata_line;
+    bool* cdata_valid;
+    int32_t* pending;          // [T, SW]
+    int64_t* dir_accesses;
+    int64_t* dram_reads;
+    int64_t* dram_total_lat;
+    int64_t unused;
+    MemConsts c;
+};
+
+__device__ __forceinline__ int32_t e_tag(int64_t w) {
+    return (int32_t)(w & TAG_MASK) - 1;
+}
+__device__ __forceinline__ int e_state(int64_t w) {
+    return (int)((w >> STATE_SHIFT) & 7);
+}
+__device__ __forceinline__ int32_t e_owner(int64_t w) {
+    return (int32_t)((w >> OWNER_SHIFT) & ID_MASK) - 1;
+}
+__device__ __forceinline__ int32_t e_nsh(int64_t w) {
+    return (int32_t)((w >> NSH_SHIFT) & ID_MASK);
+}
+__device__ __forceinline__ int64_t e_pack(int64_t tag, int st, int64_t owner,
+                                          int64_t nsh) {
+    return ((tag + 1) & TAG_MASK) | ((int64_t)(st & 7) << STATE_SHIFT) |
+           (((owner + 1) & ID_MASK) << OWNER_SHIFT) |
+           ((nsh & ID_MASK) << NSH_SHIFT);
+}
+
+__global__ void __launch_bounds__(HOMES)
+mem_home_start_kernel(const HomeArgs a) {
+    const MemConsts& c = a.c;
+    const int T = (int)c.T;
+    const int base = blockIdx.x * HOMES;
+    const int h = base + threadIdx.x;
+    __shared__ unsigned long long best[HOMES];
+    best[threadIdx.x] = FAR;
+    __syncthreads();
+    for (int r = threadIdx.x; r < T; r += HOMES) {
+        if (a.req_type[r] == MSG_NONE) continue;
+        const int hh = a.req_home[r] - base;
+        if (hh >= 0 && hh < HOMES)
+            atomicMin(&best[hh], (unsigned long long)(a.req_time[r] * T + r));
+    }
+    __syncthreads();
+    if (h >= T) return;
+
+    const unsigned long long key = best[threadIdx.x];
+    const bool found = key < FAR;
+    const int r_col = found ? (int)(key % (unsigned long long)T) : 0;
+    const bool can_start = !a.active[h];
+    const bool use_saved = can_start && a.saved_valid[h];
+    const bool use_pop = can_start && !use_saved && found;
+    if (!(use_saved || use_pop)) return;
+
+    const bool en = *a.enabled;
+    const int64_t dram_lat = en ? c.dram_lat_ps : 0;
+    const int64_t dir_access = en ? c.dir_access_ps : 0;
+    const int rtype = use_saved ? a.saved_type[h] : a.req_type[r_col];
+    const int32_t rline = use_saved ? a.saved_line[h] : a.req_line[r_col];
+    const int32_t rreq = use_saved ? a.saved_requester[h] : r_col;
+    int64_t rtime = use_saved ? a.saved_time_ps[h] : a.req_time[r_col];
+    // the directory's message sync, once per message
+    if (!use_saved)
+        rtime += en ? (rreq == h ? c.sync_dir_l2_ps : c.sync_dir_net_ps) : 0;
+    // same-address serialization floor
+    if (rline == a.last_line[h]) rtime = max(rtime, a.last_done_ps[h]);
+    if (use_pop) a.req_type[r_col] = MSG_NONE;
+    if (use_saved) a.saved_valid[h] = false;
+
+    // the directory set: lookup, else a free way, else the fewest sharers
+    const int DW = (int)c.DW, SW = (int)c.SW;
+    const int64_t set = rline % c.DS;
+    int64_t* words = a.entry + ((size_t)h * c.DS + set) * DW;
+    int way = -1, free_way = -1, victim = 0;
+    int32_t min_nsh = 0x7FFFFFFF;
+    for (int w = 0; w < DW; ++w) {
+        const int64_t e = words[w];
+        const int32_t tag = e_tag(e);
+        if (way < 0 && tag == rline) way = w;
+        if (free_way < 0 && tag == -1) free_way = w;
+        if (e_nsh(e) < min_nsh) { min_nsh = e_nsh(e); victim = w; }
+    }
+    const bool dfound = way >= 0;
+    const int alloc = dfound ? way : (free_way >= 0 ? free_way : victim);
+    const int64_t vw = words[alloc];
+    const int32_t v_line = e_tag(vw), v_owner = e_owner(vw);
+    const int v_dstate = e_state(vw);
+    int32_t* vsh = a.sharers + ((size_t)h * c.DS + set) * DW * SW +
+                   (size_t)alloc * SW;
+
+    // NULLIFY: a full set's live victim runs first; the request is saved
+    const bool nullify = !dfound && free_way < 0 && v_dstate != DIR_UNCACHED;
+    if (nullify) {
+        a.saved_valid[h] = true;
+        a.saved_type[h] = (uint8_t)rtype;
+        a.saved_line[h] = rline;
+        a.saved_requester[h] = rreq;
+        a.saved_time_ps[h] = rtime;
+    }
+    const int32_t eff_line = nullify ? v_line : rline;
+    const int eff_type = nullify ? MSG_NULLIFY : rtype;
+    const int eff_dstate = nullify ? v_dstate
+                                   : (dfound ? v_dstate : DIR_UNCACHED);
+    const int64_t eff_time = rtime + dir_access;
+    const bool run_req = !nullify;
+    const bool is_ex = eff_type == MSG_EX_REQ, is_sh = eff_type == MSG_SH_REQ;
+    const bool uncached = eff_dstate == DIR_UNCACHED;
+    const bool shared = eff_dstate == DIR_SHARED;
+    const bool modified = eff_dstate == DIR_MODIFIED;
+
+    // (a) immediate finishes: UNCACHED requests, SH on SHARED
+    const bool imm_ex = run_req && is_ex && uncached;
+    const bool imm_sh = run_req && is_sh && (uncached || shared);
+    const bool imm = imm_ex || imm_sh;
+    const bool keep = imm_sh && shared;   // the entry's sharers stay
+    int32_t n_cur = 0;
+    bool had = false;
+    if (keep) {
+        for (int w = 0; w < SW; ++w) n_cur += __popc((uint32_t)vsh[w]);
+        had = ((uint32_t)vsh[rreq / 32] >> (rreq % 32)) & 1;
+    }
+
+    // (b) fan-out: EX/NULLIFY on SHARED invalidates every sharer; any
+    // request on MODIFIED goes to the owner (WB for SH, else FLUSH)
+    const bool fan_inv = (run_req && is_ex && shared) || (nullify && shared);
+    const bool fan_owner = modified;
+    if (fan_inv || fan_owner) {
+        const int fwd_msg = fan_inv ? MSG_INV_REQ
+                                    : (is_sh ? MSG_WB_REQ : MSG_FLUSH_REQ);
+        const int owner = min(max(v_owner, 0), T - 1);
+        int32_t* pend = a.pending + (size_t)h * SW;
+        for (int w = 0; w < SW; ++w) {
+            uint32_t bits = fan_inv ? (uint32_t)vsh[w]
+                                    : (owner / 32 == w ? 1u << (owner % 32)
+                                                       : 0u);
+            pend[w] = (int32_t)bits;
+            while (bits) {
+                const int b = __ffs(bits) - 1;
+                bits &= bits - 1;
+                const int s = w * 32 + b;
+                if (s >= T) break;
+                const size_t cell = (size_t)s * T + h;
+                a.fwd_type[cell] = (uint8_t)fwd_msg;
+                a.fwd_line[cell] = eff_line;
+                a.fwd_time[cell] = eff_time + net_lat_ps(c, h, s, c.req_bits,
+                                                         en);
+            }
+        }
+        a.active[h] = true;
+        a.mtype[h] = (uint8_t)eff_type;
+        a.line[h] = eff_line;
+        a.requester[h] = rreq;
+        a.time_ps[h] = eff_time;
+        a.data_cached[h] = false;
+    }
+
+    // one entry write: the new entry's install (UNCACHED, empty) and the
+    // immediate finish; the finish wins where both apply
+    if (!dfound || imm) {
+        words[alloc] = e_pack(
+            !dfound ? rline : v_line,
+            imm ? (imm_ex ? DIR_MODIFIED : DIR_SHARED) : DIR_UNCACHED,
+            imm_ex ? rreq : -1,
+            imm_ex ? 1 : (imm ? n_cur + (had ? 0 : 1) : 0));
+        for (int w = 0; w < SW; ++w) {
+            uint32_t v = keep ? (uint32_t)vsh[w] : 0u;
+            if (imm && rreq / 32 == w) v |= 1u << (rreq % 32);
+            vsh[w] = (int32_t)v;
+        }
+    }
+    if (imm) {
+        const bool cdata = a.cdata_valid[h] && a.cdata_line[h] == eff_line;
+        const int64_t ready = eff_time + (cdata ? 0 : dram_lat);
+        if (cdata) a.cdata_valid[h] = false;
+        const int64_t arrival = ready + net_lat_ps(c, h, rreq, c.rep_bits, en);
+        a.rep_type[rreq] = (uint8_t)(a.rep_type[rreq] +
+                                     (imm_ex ? MSG_EX_REP : MSG_SH_REP));
+        a.rep_time[rreq] += arrival;
+        a.last_line[h] = eff_line;
+        a.last_done_ps[h] = ready;
+        if (en && !cdata) {
+            a.dram_reads[h] += 1;
+            a.dram_total_lat[h] += dram_lat;
+        }
+    }
+    if (en) a.dir_accesses[h] += 1;
+    atomicAdd(a.progress, 1);
+}
+
+extern "C" int gt_mem_home_start(const HomeArgs* args, cudaStream_t stream) {
+    static_assert(sizeof(HomeArgs) == (32 + 1 + 31) * 8,
+                  "HomeArgs: 32 pointers, one int and MemConsts");
+    const int T = (int)args->c.T;
+    mem_home_start_kernel<<<(T + HOMES - 1) / HOMES, HOMES, 0, stream>>>(
+        *args);
+    return (int)cudaGetLastError();
+}

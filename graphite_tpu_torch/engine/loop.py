@@ -23,7 +23,9 @@ from __future__ import annotations
 import torch
 
 from graphite_tpu_torch.engine.state import DeviceTrace, Lanes, SimState
-from graphite_tpu_torch.engine.step import EngineParams, subquantum_iteration
+from graphite_tpu_torch.engine.step import (
+    NO_MODELS, EngineParams, ModelCtx, subquantum_iteration,
+)
 
 INF_QEND = 2**61
 BIG = 2**62
@@ -36,7 +38,8 @@ def _wrap_i32(x: int) -> int:
 
 def quantum_loop(params: EngineParams, trace: DeviceTrace, state: SimState,
                  qend: torch.Tensor, lanes: Lanes,
-                 cost_table: torch.Tensor) -> tuple[int, int]:
+                 cost_table: torch.Tensor,
+                 models: ModelCtx = NO_MODELS) -> tuple[int, int]:
     """Blocks of `inner_block` iterations until a block makes no progress
     (`step.py:1207`).  Returns (total progress, iterations run)."""
     total, iters = 0, 0
@@ -44,7 +47,7 @@ def quantum_loop(params: EngineParams, trace: DeviceTrace, state: SimState,
         lanes.progress.zero_()
         for _ in range(params.inner_block):
             subquantum_iteration(params, trace, state, qend, lanes,
-                                 cost_table)
+                                 cost_table, models)
         blk = _wrap_i32(int(lanes.progress.item()))
         total = _wrap_i32(total + blk)
         iters += params.inner_block
@@ -55,7 +58,8 @@ def quantum_loop(params: EngineParams, trace: DeviceTrace, state: SimState,
 def run_simulation(params: EngineParams, trace: DeviceTrace,
                    state: SimState, quantum_ps: "int | None",
                    max_quanta: int, lanes: Lanes,
-                   cost_table: torch.Tensor) -> tuple[int, bool, int]:
+                   cost_table: torch.Tensor,
+                   models: ModelCtx = NO_MODELS) -> tuple[int, bool, int]:
     """Quanta until every tile is done, a ring overflowed, a quantum
     deadlocked or `max_quanta` ran (`step.py:1285`); `state` is updated
     in place.  Returns (n_quanta, deadlock, n_iterations)."""
@@ -73,7 +77,7 @@ def run_simulation(params: EngineParams, trace: DeviceTrace,
                                   rounding_mode="floor") + 1) * quantum_ps
             qend.copy_(torch.maximum(prev_qend + quantum_ps, boundary))
         progress, blk_iters = quantum_loop(params, trace, state, qend,
-                                           lanes, cost_table)
+                                           lanes, cost_table, models)
         clock, not_done = state.core.clock_ps, ~state.done
         if quantum_ps is not None:
             ahead = torch.where(not_done & (clock >= qend), clock, BIG).min()

@@ -1,9 +1,11 @@
 """Host-side orchestration: config -> EngineParams, state, run, results.
 
 Port of `graphite_tpu/engine/simulator.py` for the path this package
-supports: the simple in-order core without a memory subsystem, the magic
-or emesh_hop_counter USER network, and the `lax` / `lax_barrier`
-clock-skew schemes, resident on one device.  `SimResults`, `summary()`,
+supports: the simple in-order and the iocoom cores (mixed per tile by
+`[tile] model_list`), without a memory subsystem or with the private-L1/L2
+MSI directory protocol (`full_map` directory, magic or emesh_hop_counter
+MEMORY network), the magic or emesh_hop_counter USER network, and the
+`lax` / `lax_barrier` clock-skew schemes, resident on one device.  `SimResults`, `summary()`,
 `DeadlockError` and `MailboxOverflowError` match the JAX package.
 
 Every other configuration raises `NotImplementedError` naming the
@@ -27,9 +29,15 @@ from graphite_tpu_torch.engine.state import (
     DeviceTrace, DvfsState, Lanes, SimState, init_state,
 )
 from graphite_tpu_torch.engine.step import (
-    PLAIN_UNROLL_MAX, EngineParams, cost_table_tensor, units_for_ops,
+    PLAIN_UNROLL_MAX, EngineParams, ModelCtx, cost_table_tensor,
+    units_for_ops,
 )
+from graphite_tpu_torch.memory.context import MemCtx
+from graphite_tpu_torch.memory.engine import line_census
+from graphite_tpu_torch.memory.params import MemParams
+from graphite_tpu_torch.memory.state import COUNTER_NAMES, init_mem_state
 from graphite_tpu_torch.models.dvfs import DvfsParams, module_freq_mhz
+from graphite_tpu_torch.models.iocoom import IocoomParams, init_iocoom_state
 from graphite_tpu_torch.models.network_user import UserNetworkParams
 from graphite_tpu_torch.time_types import cycles_to_ps, ns_to_ps, ps_to_ns
 from graphite_tpu_torch.trace.schema import (
@@ -70,8 +78,8 @@ def resolve_device(device) -> torch.device:
 class SimResults:
     """Final counters, mirroring the `sim.out` summary structure
     (`core_model.cc:90-115`, `tile.cc:105-123`); same fields as the JAX
-    package's `SimResults` (the memory/iocoom/observability ones are
-    always empty here)."""
+    package's `SimResults` (the observability ones, telemetry, profile and
+    hist, are always empty here)."""
 
     n_tiles: int
     completion_time_ps: int
@@ -126,12 +134,16 @@ class SimResults:
                        f"{ps_to_ns(int(self.sync_stall_ps[t]))}")
             out.append("      Network Recv: "
                        f"{ps_to_ns(int(self.recv_stall_ps[t]))}")
+            if self.detailed_stalls is not None:
+                out.extend(self._detailed_summary(t))
             bp_total = int(self.bp_correct[t] + self.bp_incorrect[t])
             if bp_total:
                 out.append("    Branch Predictor:")
                 out.append(f"      Num Correct: {int(self.bp_correct[t])}")
                 out.append("      Num Incorrect: "
                            f"{int(self.bp_incorrect[t])}")
+            if self.mem_counters is not None:
+                out.extend(self._cache_summary(t))
             out.append("  Network Summary (USER):")
             out.append(f"    Packets Sent: {int(self.packets_sent[t])}")
             out.append("    Packets Received: "
@@ -142,6 +154,50 @@ class SimResults:
                 out.append("    Average Packet Latency (in nanoseconds): "
                            f"{avg:.3f}")
         return "\n".join(out)
+
+
+    def _detailed_summary(self, t: int) -> list:
+        """`iocoom_core_model.cc:64-77` outputSummary."""
+        ds = self.detailed_stalls
+        rows = (("Load Queue", "load_queue"), ("Store Queue", "store_queue"),
+                ("L1-I Cache", "l1icache"),
+                ("L1-D Cache (Intra-Instruction)", "intra_ins_l1dcache"),
+                ("L1-D Cache (Inter-Instruction)", "inter_ins_l1dcache"),
+                ("Execution Unit (Intra-Instruction)",
+                 "intra_ins_execution_unit"),
+                ("Execution Unit (Inter-Instruction)",
+                 "inter_ins_execution_unit"))
+        out = ["    Detailed Stall Time Breakdown (in nanoseconds): "]
+        out += [f"      {label}: {ps_to_ns(int(ds[k][t]))}"
+                for label, k in rows]
+        return out
+
+    def _cache_summary(self, t: int) -> list:
+        """The cache counters (`cache.cc outputSummary`), with the miss
+        types and the L2 line utilization when they were tracked."""
+        mc = self.mem_counters
+        out = ["  Cache Summary:",
+               f"    L1-I Misses: {int(mc['l1i_misses'][t])}",
+               "    L1-D Misses: "
+               f"{int(mc['l1d_read_misses'][t] + mc['l1d_write_misses'][t])}",
+               f"    L2 Misses: {int(mc['l2_misses'][t])}"]
+        if int(mc["l2_cold_misses"][t] + mc["l2_capacity_misses"][t]
+               + mc["l2_sharing_misses"][t]):
+            out += [f"      Cold Misses: {int(mc['l2_cold_misses'][t])}",
+                    "      Capacity Misses: "
+                    f"{int(mc['l2_capacity_misses'][t])}",
+                    "      Sharing Misses: "
+                    f"{int(mc['l2_sharing_misses'][t])}"]
+        hist = np.asarray(mc["line_util_hist"][t])
+        if int(hist.sum()):
+            out += ["    Cache Line Utilization (L2):",
+                    f"      Total Reads: {int(mc['line_util_reads'][t])}",
+                    f"      Total Writes: {int(mc['line_util_writes'][t])}"]
+            labels = ("0", "1", "2-3", "4-7", "8-15", "16-31", "32-63",
+                      ">=64")
+            out += [f"      Accesses {lb}: {int(n)}"
+                    for lb, n in zip(labels, hist)]
+        return out
 
 
 def auto_mailbox_depth(batch: TraceBatch) -> int:
@@ -263,18 +319,16 @@ class Simulator:
             raise ValueError(
                 f"trace has {n_tiles} tiles but config expects "
                 f"{config.application_tiles} application tiles")
-        has_mem = bool(
-            np.any(trace.flags & (FLAG_MEM0_VALID | FLAG_MEM1_VALID))
-        ) or cfg.get_bool("general/enable_icache_modeling", False)
-        if config.enable_shared_mem and has_mem:
-            raise _not_ported("the memory subsystem (a trace with memory "
-                              "operands or icache modeling)", 6)
-        core_types = {config.tile_spec(t).core_type for t in range(n_tiles)}
-        if "iocoom" in core_types:
-            raise _not_ported("the iocoom core model", 7)
-        unknown = core_types - {"simple", "default", "magic"}
+        mem_params = self._mem_params(config, trace)
+        core_list = [config.tile_spec(t).core_type for t in range(n_tiles)]
+        unknown = set(core_list) - {"iocoom", "simple", "default", "magic"}
         if unknown:
             raise NotImplementedError(f"core model(s) {sorted(unknown)!r}")
+        iocoom_params, iocoom_tiles = None, None
+        if "iocoom" in core_list:
+            iocoom_params = IocoomParams.from_config(cfg)
+            if any(t != "iocoom" for t in core_list):
+                iocoom_tiles = tuple(t == "iocoom" for t in core_list)
         scheme = cfg.get_string("clock_skew_management/scheme",
                                 "lax_barrier")
         if scheme == "lax_barrier":
@@ -307,8 +361,12 @@ class Simulator:
             # SYSTEM network: always magic, 1 cycle each way at 1 GHz
             syscall_rt_ps=int(cycles_to_ps(2, 1000)),
             dvfs=dvfs_params,
-            plain_unroll=self._resolve_plain_unroll(cfg),
+            plain_unroll=self._resolve_plain_unroll(
+                cfg, mem_params is None and iocoom_params is None),
             units=units_for_ops(present_ops),
+            mem=mem_params,
+            iocoom=iocoom_params,
+            iocoom_tiles=iocoom_tiles,
         )
 
         self.device = resolve_device(device)
@@ -338,16 +396,61 @@ class Simulator:
             errors=torch.zeros(n_tiles, dtype=torch.int64,
                                device=self.device),
         )
+        models = ModelCtx()
+        if mem_params is not None:
+            state.mem = init_mem_state(mem_params, self.device)
+            models.mem = MemCtx(mem_params, self.device)
+        if iocoom_params is not None:
+            state.ioc = init_iocoom_state(n_tiles, iocoom_params,
+                                          self.device)
+            models.ioc_tile = torch.tensor(
+                iocoom_tiles or (True,) * n_tiles, dtype=torch.bool,
+                device=self.device)
+        self.models = models
         self.state: SimState = state
-        self.device_trace = DeviceTrace.from_batch(trace, self.device)
+        self.device_trace = DeviceTrace.from_batch(
+            trace, self.device, addrs=mem_params is not None,
+            regs=iocoom_params is not None)
         self._cost_table = cost_table_tensor(self.params, self.device)
         self._lanes = Lanes.zeros(n_tiles, self.device)
         # subquantum iterations executed by the last run
         self.last_n_iterations = 0
 
     @staticmethod
-    def _resolve_plain_unroll(cfg) -> int:
-        pu = cfg.get_int("general/plain_unroll", 16)
+    def _mem_params(config: SimConfig, trace: TraceBatch):
+        """The memory subsystem's parameters, or None when shared memory
+        is off or the trace touches no memory (`engine/simulator.py:
+        447-472` of the JAX package); raises for what is not ported."""
+        cfg = config.cfg
+        has_mem = bool(
+            np.any(trace.flags & (FLAG_MEM0_VALID | FLAG_MEM1_VALID))
+        ) or cfg.get_bool("general/enable_icache_modeling", False)
+        dyn_mem = np.any(
+            (trace.op >= 15) & (trace.op < 20)
+            & ((trace.flags & (FLAG_MEM0_VALID | FLAG_MEM1_VALID)) != 0))
+        if bool(dyn_mem):
+            raise ValueError(
+                "dynamic trace records (ops 15-19) must not carry "
+                "FLAG_MEM*_VALID memory operands")
+        if not (config.enable_shared_mem and has_mem):
+            return None
+        protocol = cfg.get_string("caching_protocol/type",
+                                  "pr_l1_pr_l2_dram_directory_msi")
+        if protocol in ("pr_l1_pr_l2_dram_directory_mosi",
+                        "pr_l1_sh_l2_msi", "pr_l1_sh_l2_mesi"):
+            raise _not_ported(f"the caching protocol {protocol!r}", 8)
+        if protocol != "pr_l1_pr_l2_dram_directory_msi":
+            raise NotImplementedError(
+                f"caching protocol {protocol!r} pending")
+        dir_type = cfg.get_string("dram_directory/directory_type",
+                                  "full_map")
+        if dir_type != "full_map":
+            raise _not_ported(f"the {dir_type!r} directory scheme", 8)
+        return MemParams.from_config(config)
+
+    @staticmethod
+    def _resolve_plain_unroll(cfg, memoryless: bool) -> int:
+        pu = cfg.get_int("general/plain_unroll", 16 if memoryless else 1)
         if pu > PLAIN_UNROLL_MAX:
             warnings.warn(
                 f"[general] plain_unroll = {pu} exceeds the ceiling "
@@ -359,7 +462,7 @@ class Simulator:
     def _drive(self, max_quanta: int):
         n, deadlock, iters = run_simulation(
             self.params, self.device_trace, self.state, self.quantum_ps,
-            max_quanta, self._lanes, self._cost_table)
+            max_quanta, self._lanes, self._cost_table, self.models)
         self.last_n_iterations = iters
         overflow = bool(self.state.net.overflow.item())
         done = self.state.done.cpu().numpy()
@@ -419,6 +522,7 @@ class Simulator:
             return t.cpu().numpy()
 
         clock = h(core.clock_ps)
+        mem, ioc = self.state.mem, self.state.ioc
         return SimResults(
             n_tiles=self.params.n_tiles,
             completion_time_ps=int(clock.max()),
@@ -436,4 +540,13 @@ class Simulator:
             packets_received=h(net.packets_received),
             total_packet_latency_ps=h(net.total_latency_ps),
             n_quanta=int(n_quanta),
+            mem_counters=(None if mem is None else {
+                n: h(getattr(mem.counters, n)) for n in COUNTER_NAMES}),
+            func_errors=0 if mem is None else int(mem.func_errors),
+            detailed_stalls=None if ioc is None else ioc.detailed_stalls(),
         )
+
+    def line_census(self, lines) -> dict:
+        """The per-line coherence view of the current memory state
+        (`memory/engine.py` line_census)."""
+        return line_census(self.state.mem, self.params.mem, lines)

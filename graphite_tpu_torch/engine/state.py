@@ -126,6 +126,8 @@ class SimState(_TensorTree):
     done: torch.Tensor             # bool[T]
     dvfs: "DvfsState | None" = None
     p2p_round: "torch.Tensor | None" = None   # int32[]
+    mem: "object | None" = None   # memory.state.MemState
+    ioc: "object | None" = None   # models.iocoom.IocoomState
 
 
 @dataclasses.dataclass
@@ -133,8 +135,11 @@ class DeviceTrace(_TensorTree):
     """The trace columns the engine reads, [T, L] each, on the device.
 
     `op`/`flags` stay uint8, `aux0`/`aux1` int32, `dyn_ps` int64; `pc` is
-    the uint32 column zero-extended to int64.  The memory-operand and
-    register columns belong to subsystems this package has not ported."""
+    the uint32 column zero-extended to int64.  The memory-operand columns
+    `addr0`/`addr1` (uint32, zero-extended to int64) come to the device
+    only for a run with a memory subsystem or the iocoom core, and the
+    register columns `rreg0`/`rreg1`/`wreg` (uint16, as int32) only for
+    the iocoom core, so the memoryless headline's trace does not grow."""
 
     op: torch.Tensor
     flags: torch.Tensor
@@ -142,21 +147,38 @@ class DeviceTrace(_TensorTree):
     aux0: torch.Tensor
     aux1: torch.Tensor
     dyn_ps: torch.Tensor
+    addr0: "torch.Tensor | None" = None
+    addr1: "torch.Tensor | None" = None
+    rreg0: "torch.Tensor | None" = None
+    rreg1: "torch.Tensor | None" = None
+    wreg: "torch.Tensor | None" = None
 
     @classmethod
-    def from_batch(cls, batch: TraceBatch, device) -> "DeviceTrace":
+    def from_batch(cls, batch: TraceBatch, device, *, addrs: bool = False,
+                   regs: bool = False) -> "DeviceTrace":
         def put(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a)).to(
                 dtype=dtype, device=device)
 
+        def zext(a):
+            return put(np.asarray(a, np.uint32).astype(np.int64),
+                       torch.int64)
+
+        extra = {}
+        if addrs:
+            extra.update(addr0=zext(batch.addr0), addr1=zext(batch.addr1))
+        if regs:
+            extra.update({f: put(np.asarray(getattr(batch, f), np.uint16)
+                                 .astype(np.int32), torch.int32)
+                          for f in ("rreg0", "rreg1", "wreg")})
         return cls(
             op=put(np.asarray(batch.op, np.uint8), torch.uint8),
             flags=put(np.asarray(batch.flags, np.uint8), torch.uint8),
-            pc=put(np.asarray(batch.pc, np.uint32).astype(np.int64),
-                   torch.int64),
+            pc=zext(batch.pc),
             aux0=put(np.asarray(batch.aux0, np.int32), torch.int32),
             aux1=put(np.asarray(batch.aux1, np.int32), torch.int32),
             dyn_ps=put(np.asarray(batch.dyn_ps, np.int64), torch.int64),
+            **extra,
         )
 
     @property
@@ -210,6 +232,13 @@ class Lanes(_TensorTree):
     freq_new: torch.Tensor      # int32[T]
     # models enabled after this iteration's ENABLE/DISABLE events
     en_post: torch.Tensor       # bool[]
+    # memory engine: every memory slot of the record complete (all True
+    # without a memory subsystem)
+    mem_ok: torch.Tensor        # bool[T]
+    # iocoom_commit: the committing lanes' clock and stall increments
+    ioc_clock: torch.Tensor     # int64[T]
+    ioc_mem_stall: torch.Tensor  # int64[T]
+    ioc_exec_stall: torch.Tensor  # int64[T]
     # advanced lanes, summed over the current block of iterations
     progress: torch.Tensor      # int32[1]
 
@@ -220,7 +249,8 @@ class Lanes(_TensorTree):
             "aux0": torch.int32, "aux1": torch.int32,
             "dyn_ps": torch.int64, "bp_index": torch.int32,
             "bp_pred": torch.uint8, "recv_lat": torch.int32,
-            "freq_new": torch.int32,
+            "freq_new": torch.int32, "ioc_clock": torch.int64,
+            "ioc_mem_stall": torch.int64, "ioc_exec_stall": torch.int64,
         }
         out = {}
         for f in dataclasses.fields(cls):
@@ -236,6 +266,7 @@ class Lanes(_TensorTree):
                 out[n] = torch.zeros(n_tiles,
                                      dtype=dtypes.get(n, torch.bool),
                                      device=device)
+        out["mem_ok"].fill_(True)
         return cls(**out)
 
 

@@ -1,13 +1,14 @@
 """The subquantum step: every tile advances (at most) one trace record.
 
 Port of `graphite_tpu/engine/step.py` `subquantum_iteration` (`:151-1204`)
-for the memoryless simple core (`params.mem is None`, `params.iocoom is
-None`, no `lax_p2p` clamp).  The JAX step is one pure function; here it
-is a fixed sequence of units over one `Lanes` scratch, and the state is
-updated IN PLACE where JAX carried a buffer through the loop (mailbox
-rings, barrier tables, core counters):
+for the simple and iocoom cores, with or without the private-L1/L2 MSI
+memory subsystem (no `lax_p2p` clamp).  The JAX step is one pure
+function; here it is a fixed sequence of units over one `Lanes` scratch,
+and the state is updated IN PLACE where JAX carried a buffer through the
+loop (mailbox rings, barrier tables, core counters, memory state):
 
     lane_fetch_cost   kernel   fetch + done/active + cost       (:193-403)
+    memory engine     3 kernels + PyTorch, six phases           (:279-340)
     user_mailbox      kernel   sends, then receives             (:413-502)
     barrier_sync      kernel   init/arrive/release/split forms  (:505-577)
     mutex + cond      PyTorch                                   (:578-777)
@@ -15,7 +16,15 @@ rings, barrier tables, core counters):
     join              PyTorch                                   (:822-840)
     DVFS_SET          PyTorch                                   (:916-998)
     models toggle     PyTorch  post-event enable flag          (:1041,1172)
+    iocoom_commit     kernel   the iocoom pipeline algebra      (:856-900)
     lane_commit       kernel   advance/clock/counters/batching  (:842-1204)
+
+The memory engine reads the pre-commit clock and frequency and the
+fetched record, and nothing the machinery units write, so running it
+first (as the JAX step does) or in any place before `iocoom_commit` is
+the same.  `iocoom_commit` needs each lane's advance mask before
+`lane_commit` computes it; for an instruction record that mask is
+`active & mem_ok` (every other advance term belongs to another op).
 
 Unit gating.  The JAX step skips each machinery block under a `lax.cond`
 on "some lane has such an op now"; reading such a flag to the host every
@@ -43,7 +52,7 @@ from graphite_tpu_torch.engine.state import (
 )
 from graphite_tpu_torch.models.network_user import UserNetworkParams
 from graphite_tpu_torch.ops import (
-    barrier_sync, lane_commit, lane_fetch_cost, user_mailbox,
+    barrier_sync, iocoom_commit, lane_commit, lane_fetch_cost, user_mailbox,
 )
 from graphite_tpu_torch.ops.barrier_sync import elect_min
 from graphite_tpu_torch.trace.schema import Op
@@ -94,10 +103,18 @@ class EngineParams:
     plain_unroll: int = 1
     # the machinery units that can run on this trace (see module doc)
     units: frozenset = ALL_UNITS
+    # the memory subsystem (memory.params.MemParams; None = memoryless)
+    mem: "object" = None
+    # the iocoom core (models.iocoom.IocoomParams; None = simple core),
+    # and which tiles run it (None = all, when set)
+    iocoom: "object" = None
+    iocoom_tiles: "tuple | None" = None
 
     def n_follow(self, trace_length: int) -> int:
-        """Follow-on PLAIN records a lane may commit per iteration."""
-        if self.plain_unroll <= 1 or trace_length <= 1:
+        """Follow-on PLAIN records a lane may commit per iteration (the
+        simple-core memoryless runs only, as in the JAX step)."""
+        if (self.plain_unroll <= 1 or trace_length <= 1
+                or self.mem is not None or self.iocoom is not None):
             return 0
         return min(self.plain_unroll - 1, PLAIN_UNROLL_MAX - 1,
                    trace_length - 1)
@@ -348,17 +365,37 @@ def models_unit(state: SimState, lanes: Lanes) -> None:
                                         state.models_enabled)))
 
 
+@dataclasses.dataclass
+class ModelCtx:
+    """The per-run device tables of the memory subsystem and the iocoom
+    core (None where the run has none)."""
+
+    mem: "object" = None                   # memory.context.MemCtx
+    ioc_tile: "torch.Tensor | None" = None  # bool[T]: the iocoom tiles
+
+
+NO_MODELS = ModelCtx()
+
+
 def subquantum_iteration(params: EngineParams, trace: DeviceTrace,
                          state: SimState, qend: torch.Tensor,
-                         lanes: Lanes, cost_table: torch.Tensor) -> None:
+                         lanes: Lanes, cost_table: torch.Tensor,
+                         models: ModelCtx = NO_MODELS) -> None:
     """One iteration, in place on `state`; adds the number of lanes that
-    advanced to `lanes.progress` (the JAX step's second return value)."""
+    advanced, and the memory engine's events, to `lanes.progress` (the
+    JAX step's second return value)."""
     core = state.core
     units = params.units
     lane_fetch_cost(trace, core, state.done, state.models_enabled, qend,
                     cost_table, bp_enabled=params.bp_enabled,
                     bp_penalty=params.bp_mispredict_penalty,
                     syscall_rt_ps=params.syscall_rt_ps, lanes=lanes)
+    if params.mem is not None:
+        from graphite_tpu_torch.memory.engine import memory_engine_step
+
+        memory_engine_step(models.mem, state.mem, lanes, trace, core,
+                           state.models_enabled, lanes.progress,
+                           lanes.mem_ok)
     if "net" in units:
         user_mailbox(params.net, lanes, core.clock_ps, state.models_enabled,
                      state.net)
@@ -378,9 +415,15 @@ def subquantum_iteration(params: EngineParams, trace: DeviceTrace,
     if "models" in units:
         models_unit(state, lanes)
         en_post = lanes.en_post
+    req = state.mem.req if params.mem is not None else None
+    if params.iocoom is not None:
+        iocoom_commit(params.iocoom, state.ioc, lanes, models.ioc_tile, core,
+                      trace, None if req is None else req.slot_lat_ps,
+                      state.models_enabled)
     lane_commit(trace.op, lanes, freq_new, en_post, core, state.net,
                 state.done, state.models_enabled, qend, cost_table,
-                n_follow=params.n_follow(trace.length))
+                n_follow=params.n_follow(trace.length), req=req,
+                ioc_tile=models.ioc_tile)
     if "models" in units:
         state.models_enabled.copy_(lanes.en_post)
 

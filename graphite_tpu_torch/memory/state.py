@@ -1,0 +1,267 @@
+"""Memory-subsystem state as tensors: caches, directory, mailboxes, DRAM.
+
+Port of `graphite_tpu/memory/state.py` for the private-L1/L2 MSI
+directory protocol.  Every leaf keeps the JAX leaf's shape and, where
+torch has the type, its dtype.  The uint32 words do not: torch has no
+uint32 `>>` or `+` worth trusting, so
+
+ - the directory sharer bitvectors and the transactions' pending sets
+   (`DirectoryArrays.sharers`, `TxnState.pending`) hold each uint32 word's
+   bit pattern as int32 — they are only ever and-ed, or-ed, tested bit by
+   bit and compared with 0, for which the sign does not matter, and at
+   1024 tiles the sharers store is 2.1 GB as int32 (4.3 GB as int64);
+ - the miss-type bitmaps, the line-utilization counters and the
+   functional word store (`mt`, `l2_util`, `func_mem`) hold each word
+   zero-extended to int64, masked to 32 bits wherever it is written.
+
+The JAX package's directory staging rows (`skey`/`sval`/`sn`), the
+per-phase skip counters and the hop-by-hop NoC state have no counterpart:
+the port writes the directory in place (the staging is bit-exact by
+construction, so leaving it out changes no result), and the hop-by-hop
+memory net is not ported (ROADMAP.md queue 1, item 9).  Mailbox layout and
+ownership are as in the JAX package (see its module docstring).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from graphite_tpu_torch.engine.state import _TensorTree
+from graphite_tpu_torch.memory.params import MemParams
+
+# message types (subset of `shmem_msg.h:12-30`)
+MSG_NONE = 0
+MSG_SH_REQ = 1
+MSG_EX_REQ = 2
+MSG_INV_REQ = 3
+MSG_FLUSH_REQ = 4
+MSG_WB_REQ = 5
+MSG_INV_REP = 6
+MSG_FLUSH_REP = 7
+MSG_WB_REP = 8
+MSG_SH_REP = 9
+MSG_EX_REP = 10
+MSG_NULLIFY = 11
+
+# directory states (`directory_state.h`)
+DIR_UNCACHED = 0
+DIR_SHARED = 1
+DIR_MODIFIED = 2
+DIR_OWNED = 3
+
+# requester phases
+PHASE_IDLE = 0
+PHASE_WAIT_REPLY = 1
+
+# memory components (indices into MemParams.module_domains)
+MOD_CORE = 0
+MOD_L1I = 1
+MOD_L1D = 2
+MOD_L2 = 3
+MOD_DIR = 4
+MOD_NET_MEM = 5
+
+# packed directory-entry word (int64[T, DS, DW]); the all-zero word is
+# the free entry (tag+1 = 0, owner+1 = 0, UNCACHED, 0 sharers)
+DIR_TAG_BITS = 34        # bits 0..33: line + 1 (0 = free)
+DIR_STATE_SHIFT = 34     # bits 34..36: directory state
+DIR_OWNER_SHIFT = 37     # bits 37..49: owner tile + 1
+DIR_NSH_SHIFT = 50       # bits 50..62: sharer count
+DIR_ID_BITS = 13         # owner/nsharers field width (tiles <= 8190)
+
+# miss-type tracking hash space: 2^16 buckets = 2048 words per set
+MT_BITS = 1 << 16
+MT_WORDS = MT_BITS // 32
+MT_FETCHED, MT_EVICTED, MT_INVALIDATED = 0, 1, 2
+
+
+@dataclasses.dataclass
+class CacheArrays(_TensorTree):
+    """One cache level over all tiles: meta int64[T, S, W] = line << 16 |
+    state << 8 | lru (`graphite_tpu/memory/cache_array.py`)."""
+
+    meta: torch.Tensor
+
+
+@dataclasses.dataclass
+class DirectoryArrays(_TensorTree):
+    entry: torch.Tensor      # int64[T, DS, DW] packed words (layout above)
+    sharers: torch.Tensor    # int32[T, DS, DW*SW] uint32 bit patterns
+
+
+@dataclasses.dataclass
+class TxnState(_TensorTree):
+    """One active directory transaction per home tile."""
+
+    active: torch.Tensor        # bool[T]
+    mtype: torch.Tensor         # uint8[T]
+    line: torch.Tensor          # int32[T]
+    requester: torch.Tensor     # int32[T]
+    time_ps: torch.Tensor       # int64[T]
+    pending: torch.Tensor       # int32[T, SW] uint32 bit patterns
+    data_cached: torch.Tensor   # bool[T]
+    saved_valid: torch.Tensor   # bool[T]
+    saved_type: torch.Tensor    # uint8[T]
+    saved_line: torch.Tensor    # int32[T]
+    saved_requester: torch.Tensor  # int32[T]
+    saved_time_ps: torch.Tensor    # int64[T]
+    last_line: torch.Tensor     # int32[T]
+    last_done_ps: torch.Tensor  # int64[T]
+    cdata_line: torch.Tensor    # int32[T]
+    cdata_valid: torch.Tensor   # bool[T]
+
+
+@dataclasses.dataclass
+class MemMailboxes(_TensorTree):
+    req_type: torch.Tensor    # uint8[T(requester)]
+    req_home: torch.Tensor    # int32[T]
+    req_line: torch.Tensor    # int32[T]
+    req_time: torch.Tensor    # int64[T]
+    evict_type: torch.Tensor  # uint8[T(home), T(src)]
+    evict_line: torch.Tensor  # int32[T, T]
+    evict_time: torch.Tensor  # int64[T, T]
+    fwd_type: torch.Tensor    # uint8[T(sharer), T(home)]
+    fwd_line: torch.Tensor    # int32[T, T]
+    fwd_time: torch.Tensor    # int64[T, T]
+    ack_type: torch.Tensor    # uint8[T(home), T(sharer)]
+    ack_line: torch.Tensor    # int32[T, T]
+    ack_time: torch.Tensor    # int64[T, T]
+    rep_type: torch.Tensor    # uint8[T(requester)]
+    rep_time: torch.Tensor    # int64[T]
+
+
+@dataclasses.dataclass
+class RequesterState(_TensorTree):
+    phase: torch.Tensor       # int32[T]
+    slot: torch.Tensor        # int32[T]
+    acc_ps: torch.Tensor      # int64[T]
+    clock_ps: torch.Tensor    # int64[T]
+    line: torch.Tensor        # int32[T]
+    is_write: torch.Tensor    # bool[T]
+    component: torch.Tensor   # uint8[T]
+    instr_buf: torch.Tensor   # int32[T]
+    slot_lat_ps: torch.Tensor  # int64[T, 3]
+
+
+COUNTER_NAMES = (
+    "l1i_hits", "l1i_misses", "l1d_read_hits", "l1d_read_misses",
+    "l1d_write_hits", "l1d_write_misses", "l2_hits", "l2_misses",
+    "evictions", "invalidations", "dir_accesses", "dir_broadcasts",
+    "dram_reads", "dram_writes", "dram_total_lat_ps", "l2_cold_misses",
+    "l2_capacity_misses", "l2_sharing_misses", "line_util_hist",
+    "line_util_reads", "line_util_writes",
+)
+
+
+@dataclasses.dataclass
+class MemCounters(_TensorTree):
+    l1i_hits: torch.Tensor        # int64[T] each, line_util_hist [T, 8]
+    l1i_misses: torch.Tensor
+    l1d_read_hits: torch.Tensor
+    l1d_read_misses: torch.Tensor
+    l1d_write_hits: torch.Tensor
+    l1d_write_misses: torch.Tensor
+    l2_hits: torch.Tensor
+    l2_misses: torch.Tensor
+    evictions: torch.Tensor
+    invalidations: torch.Tensor
+    dir_accesses: torch.Tensor
+    dir_broadcasts: torch.Tensor
+    dram_reads: torch.Tensor
+    dram_writes: torch.Tensor
+    dram_total_lat_ps: torch.Tensor
+    l2_cold_misses: torch.Tensor
+    l2_capacity_misses: torch.Tensor
+    l2_sharing_misses: torch.Tensor
+    line_util_hist: torch.Tensor
+    line_util_reads: torch.Tensor
+    line_util_writes: torch.Tensor
+
+
+@dataclasses.dataclass
+class MemState(_TensorTree):
+    l1i: CacheArrays
+    l1d: CacheArrays
+    l2: CacheArrays
+    l2_cloc: torch.Tensor        # uint8[T, S2, W2] which L1 holds the line
+    l2_util: "torch.Tensor | None"  # int64[T, S2, W2] (tracking on)
+    directory: DirectoryArrays
+    txn: TxnState
+    mail: MemMailboxes
+    req: RequesterState
+    counters: MemCounters
+    func_mem: torch.Tensor       # int64[mem_words + 1] uint32 words
+    func_errors: torch.Tensor    # int64[]
+    mt: "torch.Tensor | None" = None  # int64[T, 3, MT_WORDS] (tracking on)
+
+
+def make_cache(n_tiles: int, num_sets: int, num_ways: int,
+               device) -> CacheArrays:
+    """Free lines (-1) with LRU ranks 0..W-1 in every set."""
+    lru0 = torch.arange(num_ways, dtype=torch.int64, device=device)
+    meta = ((-1) << 16) | lru0
+    return CacheArrays(meta=meta.expand(n_tiles, num_sets, num_ways)
+                       .contiguous())
+
+
+def init_mem_state(mp: MemParams, device) -> MemState:
+    """The zero state (`graphite_tpu/memory/state.py` init_mem_state)."""
+    T = mp.n_tiles
+    SW = mp.sharer_words
+    DS, DW = mp.dir_sets, mp.dir_ways
+    i64, i32, u8 = torch.int64, torch.int32, torch.uint8
+
+    def z(shape, dtype=i64):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def full(shape, value, dtype):
+        return torch.full((shape,) if isinstance(shape, int) else shape,
+                          value, dtype=dtype, device=device)
+
+    mail = MemMailboxes(
+        req_type=z(T, u8), req_home=z(T, i32), req_line=z(T, i32),
+        req_time=z(T),
+        evict_type=z((T, T), u8), evict_line=z((T, T), i32),
+        evict_time=z((T, T)),
+        fwd_type=z((T, T), u8), fwd_line=z((T, T), i32),
+        fwd_time=z((T, T)),
+        ack_type=z((T, T), u8), ack_line=z((T, T), i32),
+        ack_time=z((T, T)),
+        rep_type=z(T, u8), rep_time=z(T),
+    )
+    req = RequesterState(
+        phase=z(T, i32), slot=z(T, i32), acc_ps=z(T), clock_ps=z(T),
+        line=z(T, i32), is_write=z(T, torch.bool), component=z(T, u8),
+        instr_buf=full(T, -1, i32), slot_lat_ps=z((T, 3)),
+    )
+    counters = MemCounters(**{
+        n: z((T, 8) if n == "line_util_hist" else T) for n in COUNTER_NAMES})
+    txn = TxnState(
+        active=z(T, torch.bool), mtype=z(T, u8), line=z(T, i32),
+        requester=z(T, i32), time_ps=z(T), pending=z((T, SW), i32),
+        data_cached=z(T, torch.bool), saved_valid=z(T, torch.bool),
+        saved_type=z(T, u8), saved_line=z(T, i32),
+        saved_requester=z(T, i32), saved_time_ps=z(T),
+        last_line=full(T, -1, i32), last_done_ps=z(T),
+        cdata_line=full(T, -1, i32), cdata_valid=z(T, torch.bool),
+    )
+    l2_shape = (T, mp.l2.num_sets, mp.l2.num_ways)
+    return MemState(
+        l1i=make_cache(T, mp.l1i.num_sets, mp.l1i.num_ways, device),
+        l1d=make_cache(T, mp.l1d.num_sets, mp.l1d.num_ways, device),
+        l2=make_cache(T, mp.l2.num_sets, mp.l2.num_ways, device),
+        l2_cloc=z(l2_shape, u8),
+        l2_util=(z(l2_shape) if mp.l2.track_line_utilization else None),
+        directory=DirectoryArrays(entry=z((T, DS, DW)),
+                                  sharers=z((T, DS, DW * SW), i32)),
+        txn=txn,
+        mail=mail,
+        req=req,
+        counters=counters,
+        # +1 scratch word absorbing masked-off dummy writes
+        func_mem=z(max(mp.func_mem_words, 1) + 1),
+        func_errors=z(()),
+        mt=(z((T, 3, MT_WORDS)) if mp.l2.track_miss_types else None),
+    )

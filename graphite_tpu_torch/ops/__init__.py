@@ -7,6 +7,13 @@
 | `barrier_sync`     | `_barrier_block` :505-577, `_elect_min` :136-146   |
 | `lane_commit`      | commit :842-915/:1098-1140, batching :999-1066    |
 
+| wrapper              | replaces (graphite_tpu/)                         |
+| -------------------- | ------------------------------------------------ |
+| `mem_requester`      | memory/engine.py `_requester_once` :1378-1688    |
+| `mem_home_start`     | memory/engine.py `_home_starts` :2219-2546       |
+| `mem_requester_fill` | memory/engine.py `_requester_fill` :2547-2712    |
+| `iocoom_commit`      | models/iocoom.py `iocoom_commit` :129-330        |
+
 Each wrapper runs its `*_plain` PyTorch version for CPU tensors and
 launches its kernel (`csrc/<name>.cu`) for CUDA tensors, or raises; it
 never falls back from the kernel to the plain version; every kernel
@@ -17,20 +24,38 @@ launches and `packs` the argument sets it validated.
 
 from graphite_tpu_torch.ops import (
     barrier_sync as _barrier_sync,
+    iocoom_commit as _iocoom_commit,
     lane_commit as _lane_commit,
     lane_fetch_cost as _lane_fetch_cost,
+    mem_home_start as _mem_home_start,
+    mem_requester as _mem_requester,
+    mem_requester_fill as _mem_requester_fill,
     user_mailbox as _user_mailbox,
 )
 from graphite_tpu_torch.ops.barrier_sync import barrier_sync, barrier_sync_plain
+from graphite_tpu_torch.ops.iocoom_commit import (
+    iocoom_commit, iocoom_commit_plain,
+)
 from graphite_tpu_torch.ops.lane_commit import lane_commit, lane_commit_plain
 from graphite_tpu_torch.ops.lane_fetch_cost import (
     lane_fetch_cost, lane_fetch_cost_plain,
+)
+from graphite_tpu_torch.ops.mem_home_start import (
+    mem_home_start, mem_home_start_plain,
+)
+from graphite_tpu_torch.ops.mem_requester import (
+    mem_requester, mem_requester_plain,
+)
+from graphite_tpu_torch.ops.mem_requester_fill import (
+    mem_requester_fill, mem_requester_fill_plain,
 )
 from graphite_tpu_torch.ops.user_mailbox import user_mailbox, user_mailbox_plain
 
 KERNELS = {
     m.KERNEL.name: m.KERNEL
-    for m in (_lane_fetch_cost, _user_mailbox, _barrier_sync, _lane_commit)
+    for m in (_lane_fetch_cost, _user_mailbox, _barrier_sync, _lane_commit,
+              _mem_requester, _mem_home_start, _mem_requester_fill,
+              _iocoom_commit)
 }
 
 
@@ -50,8 +75,11 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNELS", "barrier_sync", "barrier_sync_plain", "lane_commit",
-    "lane_commit_plain", "lane_fetch_cost", "lane_fetch_cost_plain",
-    "launch_counts", "pack_counts", "reset_launch_counts", "user_mailbox",
+    "KERNELS", "barrier_sync", "barrier_sync_plain", "iocoom_commit",
+    "iocoom_commit_plain", "lane_commit", "lane_commit_plain",
+    "lane_fetch_cost", "lane_fetch_cost_plain", "launch_counts",
+    "mem_home_start", "mem_home_start_plain", "mem_requester",
+    "mem_requester_fill", "mem_requester_fill_plain", "mem_requester_plain",
+    "pack_counts", "reset_launch_counts", "user_mailbox",
     "user_mailbox_plain",
 ]

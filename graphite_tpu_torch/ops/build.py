@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import operator
 import os
 import subprocess
@@ -60,7 +61,8 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNEL_NAMES = ("lane_fetch_cost", "user_mailbox", "barrier_sync",
-                "lane_commit")
+                "lane_commit", "mem_requester", "mem_home_start",
+                "mem_requester_fill", "iocoom_commit")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -70,7 +72,7 @@ BUILD_LOGS: dict = {}
 
 def _source_hash(name: str) -> str:
     h = hashlib.sha256()
-    for fn in (f"{name}.cu", "common.cuh"):
+    for fn in (f"{name}.cu", "common.cuh", "mem_common.cuh"):
         with open(os.path.join(CSRC_DIR, fn), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -133,6 +135,7 @@ def load(name: str) -> ctypes.CDLL:
 
 
 P = ctypes.c_void_p
+_NONES = itertools.repeat(None)
 
 
 class Binding:
@@ -140,19 +143,24 @@ class Binding:
     tensors (see the module doc), the plain values `key`, and the packed
     argument block whose address the C entry point reads."""
 
-    __slots__ = ("refs", "key", "block", "address", "device")
+    __slots__ = ("refs", "present", "key", "block", "address", "device")
 
     def __init__(self, tensors: tuple, key: tuple, block):
-        self.refs = tuple(map(weakref.ref, tensors))
+        # an optional argument left out (None) holds no reference
+        self.present = tuple(t is not None for t in tensors)
+        self.refs = tuple(weakref.ref(t) for t in tensors if t is not None)
         self.key, self.block = key, block
         self.address = ctypes.addressof(block)
         self.device = tensors[0].device
 
     def holds(self, tensors: tuple, key: tuple) -> bool:
         """Whether these very (live) tensor objects and values are the
-        ones bound."""
-        return self.key == key and all(map(
-            operator.is_, map(operator.call, self.refs), tensors))
+        ones bound, with the same arguments left out."""
+        return (self.key == key
+                and tuple(map(operator.is_not, tensors, _NONES))
+                == self.present
+                and all(map(operator.is_, map(operator.call, self.refs),
+                            itertools.compress(tensors, self.present))))
 
 
 class Kernel:
@@ -232,11 +240,13 @@ def check(t: torch.Tensor, name: str, dtype, shape, device) -> int:
 def pack_args(tensors: tuple, specs, values=()) -> ctypes.Array:
     """Validate `tensors` against `specs` ((name, dtype, shape) each, all
     on the first tensor's device) and pack their pointers, then the
-    integers `values`, into one block of int64 words."""
+    integers `values`, into one block of int64 words.  A None tensor (an
+    optional argument left out) packs a null pointer."""
     if len(tensors) != len(specs):
         raise ValueError(f"{len(tensors)} tensors for {len(specs)} "
                          "arguments")
     dev = tensors[0].device if isinstance(tensors[0], torch.Tensor) else None
-    words = [check(t, *spec, dev) for t, spec in zip(tensors, specs)]
+    words = [0 if t is None else check(t, *spec, dev)
+             for t, spec in zip(tensors, specs)]
     words += [int(v) for v in values]
     return (ctypes.c_int64 * len(words))(*words)

@@ -63,7 +63,8 @@ _BP_BITS = 1 + len(_LANE_IN) + 3 + len(_CORE)   # its place in the args
 
 def _pack(tensors: tuple, key: tuple):
     """Validate and pack one argument set (`CommitArgs` in
-    csrc/lane_commit.cu: the 48 pointers, then T, L, B and KX)."""
+    csrc/lane_commit.cu: the 57 pointers — the last nine None for the
+    memoryless simple core — then T, L, B and KX)."""
     (n_follow,) = key
     if not 0 <= n_follow <= MAX_FOLLOW:
         raise ValueError(f"lane_commit: n_follow {n_follow} outside "
@@ -80,6 +81,13 @@ def _pack(tensors: tuple, key: tuple):
     specs += [(f"net.{n}", dt, t) for n, dt in _NET]
     specs += [("done", torch.bool, t), ("enabled", torch.bool, ()),
               ("qend", torch.int64, ()), ("cost_table", torch.int64, (20,))]
+    specs += [("lanes.mem_ok", torch.bool, t), ("req.slot", torch.int32, t),
+              ("req.acc_ps", torch.int64, t),
+              ("req.slot_lat_ps", torch.int64, (T, 3)),
+              ("ioc_tile", torch.bool, t), ("lanes.ioc_clock", torch.int64, t),
+              ("lanes.ioc_mem_stall", torch.int64, t),
+              ("lanes.ioc_exec_stall", torch.int64, t),
+              ("core.memory_stall_ps", torch.int64, t)]
     return pack_args(tensors, specs, (T, L, B, n_follow))
 
 
@@ -91,7 +99,7 @@ def lane_commit_plain(trace_op: torch.Tensor, lanes: Lanes,
                       core: CoreState, net: UserNetState,
                       done: torch.Tensor, enabled: torch.Tensor,
                       qend: torch.Tensor, cost_table: torch.Tensor,
-                      n_follow: int) -> None:
+                      n_follow: int, req=None, ioc_tile=None) -> None:
     i64 = torch.int64
     ln = lanes
     op, active = ln.op, ln.active
@@ -109,7 +117,9 @@ def lane_commit_plain(trace_op: torch.Tensor, lanes: Lanes,
         | (op == Op.COND_INIT))
     instr_like = is_static | is_branch
     dyn_plain = is_dynamic & ~is_spawn
-    advance = active & (instr_like | is_bblock | dyn_plain
+    # records with memory slots commit once every slot completed
+    mem_ok = ln.mem_ok if req is not None else True
+    advance = active & (((instr_like | is_bblock) & mem_ok) | dyn_plain
                         | is_simple_event | is_send)
     advance = advance | ln.recv_now | ln.released | (active & is_spawn)
     advance = advance | ln.granted | ln.join_now | ln.cond_post_commit
@@ -118,9 +128,19 @@ def lane_commit_plain(trace_op: torch.Tensor, lanes: Lanes,
 
     clock0 = core.clock_ps
     cost = ln.cost_ps
+    # iocoom tiles take their instruction records' clock from
+    # iocoom_commit; every other record pays cost + memory latency
+    simple_instr = instr_like if ioc_tile is None else (
+        instr_like & ~ioc_tile)
+    mem_acc = req.acc_ps if req is not None else 0
     clock = torch.where(
-        advance & (instr_like | is_bblock | dyn_plain | is_simple_event
-                   | is_send), clock0 + cost, clock0)
+        advance & (simple_instr | is_bblock | dyn_plain | is_simple_event
+                   | is_send),
+        clock0 + cost + torch.where(simple_instr | is_bblock, mem_acc, 0),
+        clock0)
+    if ioc_tile is not None:
+        clock = torch.where(advance & instr_like & ioc_tile, ln.ioc_clock,
+                            clock)
     clock = torch.where(active & is_spawn, torch.maximum(clock, ln.dyn_ps),
                         clock)
     clock = torch.where(ln.recv_now, torch.maximum(clock, ln.recv_time),
@@ -186,8 +206,14 @@ def lane_commit_plain(trace_op: torch.Tensor, lanes: Lanes,
         + torch.where(advance & is_bblock & enabled, ln.aux0.to(i64), 0)
         + recv_charged.to(i64) + sync_charged.to(i64))
     core.execution_stall_ps.add_(
-        extra_cost + torch.where(advance & (is_static | is_branch
-                                            | is_bblock), cost, 0))
+        extra_cost + torch.where(advance & (simple_instr | is_bblock), cost,
+                                 0))
+    if req is not None or ioc_tile is not None:
+        core.memory_stall_ps.add_(
+            torch.where(advance & (simple_instr | is_bblock), mem_acc, 0))
+    if ioc_tile is not None:
+        core.memory_stall_ps.add_(ln.ioc_mem_stall)
+        core.execution_stall_ps.add_(ln.ioc_exec_stall)
     core.recv_instructions.add_(recv_charged.to(i64))
     core.recv_stall_ps.add_(torch.where(recv_charged, recv_wait, 0))
     core.sync_instructions.add_(sync_charged.to(i64))
@@ -207,6 +233,12 @@ def lane_commit_plain(trace_op: torch.Tensor, lanes: Lanes,
         torch.where(ln.recv_now, ln.recv_lat.to(i64), 0))
     done.copy_(ln.done)
     ln.progress.add_(advance.sum(dtype=torch.int32))
+    if req is not None:
+        # a committed record's slot machinery restarts at the next one
+        req.slot.copy_(torch.where(advance, 0, req.slot))
+        req.acc_ps.copy_(torch.where(advance, 0, req.acc_ps))
+        req.slot_lat_ps.copy_(torch.where(advance[:, None], 0,
+                                          req.slot_lat_ps))
 
 
 def lane_commit(trace_op: torch.Tensor, lanes: Lanes,
@@ -214,26 +246,41 @@ def lane_commit(trace_op: torch.Tensor, lanes: Lanes,
                 core: CoreState, net: UserNetState,
                 done: torch.Tensor, enabled: torch.Tensor,
                 qend: torch.Tensor, cost_table: torch.Tensor, *,
-                n_follow: int) -> None:
+                n_follow: int, req=None, ioc_tile=None) -> None:
     """Commit one iteration in place: `core`, `net`'s counters, `done`,
     and `lanes.progress` (+= lanes advanced).  `freq_new` is the post-
     DVFS_SET core frequency, `en_post` the post-event models-enabled
     flag, `n_follow` the number of follow-on PLAIN records a lane may
-    batch (0 = off)."""
+    batch (0 = off).  With a memory subsystem `req` is its
+    RequesterState (records with memory slots wait for `lanes.mem_ok`,
+    pay `req.acc_ps`, and a committed record resets the slot machinery);
+    with the iocoom core `ioc_tile` marks its tiles (their instruction
+    records take `lanes.ioc_clock` and the iocoom stall increments)."""
     if done.device.type == "cpu":
         lane_commit_plain(trace_op, lanes, freq_new, en_post, core, net,
-                          done, enabled, qend, cost_table, n_follow)
+                          done, enabled, qend, cost_table, n_follow,
+                          req=req, ioc_tile=ioc_tile)
         return
     if done.device.type != "cuda":
         raise ValueError(f"lane_commit: unsupported device {done.device}")
     KERNEL.launch_bound(*bound_args(trace_op, lanes, freq_new, en_post,
                                     core, net, done, enabled, qend,
-                                    cost_table, n_follow))
+                                    cost_table, n_follow, req, ioc_tile))
 
 
 def bound_args(trace_op, lanes, freq_new, en_post, core, net, done,
-               enabled, qend, cost_table, n_follow) -> tuple:
+               enabled, qend, cost_table, n_follow, req=None,
+               ioc_tile=None) -> tuple:
     """The (tensors, key) a call binds, in `CommitArgs` order."""
+    mem = req is not None
+    ioc = ioc_tile is not None
     return ((trace_op, *_lane_get(lanes), freq_new, en_post, lanes.progress,
              *_core_get(core), core.bp_bits, *_net_get(net), done, enabled,
-             qend, cost_table), (int(n_follow),))
+             qend, cost_table,
+             lanes.mem_ok if mem else None, req.slot if mem else None,
+             req.acc_ps if mem else None, req.slot_lat_ps if mem else None,
+             ioc_tile, lanes.ioc_clock if ioc else None,
+             lanes.ioc_mem_stall if ioc else None,
+             lanes.ioc_exec_stall if ioc else None,
+             core.memory_stall_ps if mem or ioc else None),
+            (int(n_follow),))

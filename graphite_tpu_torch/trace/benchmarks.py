@@ -1,32 +1,37 @@
-"""SPLASH-2 FFT trace program (the memoryless, vectorized form).
+"""SPLASH-2 FFT trace program, built as [T, L] numpy columns.
 
-Port of `graphite_tpu/trace/benchmarks.py` `fft_trace` without memory
-records: a six-step FFT skeleton — BARRIER_INIT, then three all-to-all
-transposes (tile t sends to t+i, then receives from t-i, for every i),
-two butterfly passes as BBLOCK records, barrier waits between phases.
-Butterfly cost: ~6 ops per point per log2 stage (the JAX package's
-capture calibration).  Built as [T, L] numpy columns, bit-equal to the
-JAX package's generator.
+Port of `graphite_tpu/trace/benchmarks.py` `fft_trace`: a six-step FFT
+skeleton — BARRIER_INIT, then three all-to-all transposes (tile t sends
+to t+i, then receives from t-i, for every i), two butterfly passes as
+BBLOCK records, barrier waits between phases.  Butterfly cost: ~6 ops
+per point per log2 stage (the JAX package's capture calibration).  With
+`use_memory`, each butterfly pass first loads min(points, 32) lines of
+the tile's private array (cold, line-disjoint between tiles), and only
+tile 0 initializes the barrier, as in the JAX package's record-by-record
+builder.  Both forms are bit-equal to the JAX package's arrays; the
+memory form is assembled from columns here (the record-by-record form
+is O(T^2) appends at 1024 tiles).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from graphite_tpu_torch.trace.schema import Op, TraceBatch
+from graphite_tpu_torch.trace.schema import (
+    _FIELDS, FLAG_MEM0_VALID, FLAG_SIMPLE_MOV_LOAD, NO_REG, Op, TraceBatch,
+)
 from graphite_tpu_torch.trace.synthetic import _batch_from_columns
 
 
 def fft_trace(n_tiles: int, points_per_tile: int = 256,
               use_memory: bool = False,
               ops_per_point_per_stage: int = 6) -> TraceBatch:
-    if use_memory:
-        raise NotImplementedError(
-            "fft_trace(use_memory=True) needs the memory subsystem, not "
-            "ported yet (ROADMAP.md queue 1, item 6)")
     stages = max(1, int(np.log2(max(2, points_per_tile))))
     fly_instr = points_per_tile * stages * ops_per_point_per_stage
     msg_bytes = max(8, (points_per_tile // max(1, n_tiles)) * 16)
+    if use_memory:
+        return _fft_trace_with_memory(n_tiles, points_per_tile, fly_instr,
+                                      msg_bytes)
 
     T = n_tiles
     t = np.arange(T, dtype=np.int64)[:, None]
@@ -61,3 +66,51 @@ def fft_trace(n_tiles: int, points_per_tile: int = 256,
         aux0=np.concatenate(a0s, axis=1),
         aux1=np.concatenate(a1s, axis=1),
     )
+
+
+def _fft_trace_with_memory(n_tiles: int, points_per_tile: int,
+                           fly_instr: int, msg_bytes: int) -> TraceBatch:
+    """The JAX package's `_fft_trace_with_memory` as columns: tile 0 leads
+    with BARRIER_INIT, every tile ends with THREAD_EXIT, and the other
+    tiles, one record shorter, pad with a NOP."""
+    T = n_tiles
+    K = min(points_per_tile, 32)
+    t = np.arange(T, dtype=np.int64)[:, None]
+    i = np.arange(1, T, dtype=np.int64)[None, :]
+    j = np.arange(K, dtype=np.int64)[None, :]
+    cols = {name: [] for name, _ in _FIELDS}
+
+    def emit(op, width, **fields):
+        cols["op"].append(np.full((T, width), int(op), np.int64))
+        for name, _ in _FIELDS:
+            if name == "op":
+                continue
+            fill = NO_REG if name in ("rreg0", "rreg1", "wreg") else 0
+            v = fields.get(name, fill)
+            cols[name].append(np.broadcast_to(np.asarray(v, np.int64),
+                                              (T, width)))
+
+    for phase in range(3):
+        emit(Op.BARRIER_WAIT, 1)
+        emit(Op.SEND, T - 1, aux0=(t + i) % T, aux1=msg_bytes)
+        emit(Op.NET_RECV, T - 1, aux0=(t - i) % T, aux1=msg_bytes)
+        if phase < 2:
+            emit(Op.MOV, K, flags=FLAG_MEM0_VALID | FLAG_SIMPLE_MOV_LOAD,
+                 addr0=t * points_per_tile * 64 + j * 64, size0=4)
+            emit(Op.BBLOCK, 1, aux0=fly_instr, aux1=fly_instr)
+    emit(Op.BARRIER_WAIT, 1)
+    emit(Op.THREAD_EXIT, 1)
+    body = {name: np.concatenate(cols[name], axis=1) for name, _ in _FIELDS}
+    L = body["op"].shape[1] + 1
+    out = {}
+    for name, dtype in _FIELDS:
+        a = np.zeros((T, L), np.int64)
+        a[:] = NO_REG if name in ("rreg0", "rreg1", "wreg") else 0
+        if name == "op":
+            a[:] = int(Op.NOP)
+        a[0, 1:] = body[name][0]
+        a[1:, :-1] = body[name][1:]
+        out[name] = a.astype(dtype)
+    out["op"][0, 0] = int(Op.BARRIER_INIT)
+    out["aux1"][0, 0] = T
+    return TraceBatch(**out)

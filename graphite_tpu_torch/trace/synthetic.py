@@ -3,8 +3,9 @@
 Port of the parts of `graphite_tpu/trace/synthetic.py` this package's path
 uses: the traffic-pattern destination schedules of the reference's
 synthetic_network generator (`synthetic_network.cc:16-25,215-341`), the
-vectorized column assembler and `message_ring_batch`.  Arrays are numpy,
-bit-equal to the JAX package's builders.
+vectorized column assembler, `message_ring_batch` and
+`memory_stress_trace`.  Arrays are numpy, bit-equal to the JAX
+package's builders.
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ import numpy as np
 from graphite_tpu_torch.models.network_emesh import (
     is_tile_count_permissible, mesh_dims,
 )
-from graphite_tpu_torch.trace.schema import NO_REG, Op, TraceBatch
+from graphite_tpu_torch.trace.schema import (
+    _FIELDS, FLAG_MEM0_VALID, FLAG_MEM0_WRITE, FLAG_SIMPLE_MOV_LOAD, NO_REG,
+    Op, TraceBatch,
+)
 
 
 def _mesh_dims(n_tiles: int) -> tuple[int, int]:
@@ -134,3 +138,55 @@ def message_ring_batch(
     aux1[:, send_cols] = packet_size
     aux1[:, recv_cols] = packet_size
     return _batch_from_columns(op, aux0=aux0, aux1=aux1)
+
+
+def memory_stress_trace(
+    n_tiles: int,
+    n_accesses: int = 1000,
+    working_set_bytes: int = 1 << 20,
+    write_fraction: float = 0.3,
+    stride: "int | None" = None,
+    shared_fraction: float = 0.0,
+    cache_line_size: int = 64,
+    seed: int = 0,
+) -> TraceBatch:
+    """Random or strided 8-byte loads and stores (synthetic_memory analog):
+    each tile touches its private working set at tile * working_set, plus,
+    with `shared_fraction`, a shared region (coherence stress).
+
+    The random draws come from one numpy Generator in the JAX package's
+    order (per access: the offset unless strided, the shared draw when
+    `shared_fraction` > 0, the store draw), so they stay scalar draws;
+    the records are assembled as [T, n_accesses] columns."""
+    rng = np.random.default_rng(seed)
+    T, n = n_tiles, n_accesses
+    shared_base = (n_tiles + 1) * working_set_bytes
+    offset = np.zeros((T, n), np.int64)
+    shared = np.zeros((T, n), bool)
+    store = np.zeros((T, n), bool)
+    for t in range(T):
+        for i in range(n):
+            if stride is not None:
+                offset[t, i] = (i * stride) % working_set_bytes
+            else:
+                offset[t, i] = int(rng.integers(0, working_set_bytes // 8)) * 8
+            shared[t, i] = (shared_fraction > 0
+                            and rng.random() < shared_fraction)
+            store[t, i] = rng.random() < write_fraction
+    base = np.arange(T, dtype=np.int64)[:, None] * working_set_bytes
+    addr = np.where(shared, shared_base + offset % (working_set_bytes // 4),
+                    base + offset)
+    addr -= addr % 8
+    pc = 0x1000 + (np.arange(n) % 256) * 4
+    out = {name: np.zeros((T, n + 1), dtype) for name, dtype in _FIELDS}
+    out["op"][:, :n] = int(Op.MOV)
+    out["op"][:, n] = int(Op.THREAD_EXIT)
+    out["flags"][:, :n] = np.where(
+        store, FLAG_MEM0_VALID | FLAG_MEM0_WRITE,
+        FLAG_MEM0_VALID | FLAG_SIMPLE_MOV_LOAD)
+    out["pc"][:, :n] = pc[None, :]
+    out["addr0"][:, :n] = addr
+    out["size0"][:, :n] = 8
+    for f in ("rreg0", "rreg1", "wreg"):
+        out[f][:] = NO_REG
+    return TraceBatch(**out)

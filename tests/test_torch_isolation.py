@@ -62,12 +62,25 @@ def test_runs_without_jax_or_graphite_tpu():
         from graphite_tpu_torch.engine import Simulator
         from graphite_tpu_torch.trace.benchmarks import fft_trace
         import graphite_tpu_torch.convert, graphite_tpu_torch.ops
+        import graphite_tpu_torch.memory.engine
+        import graphite_tpu_torch.models.iocoom
+        from graphite_tpu_torch.config.template import config_text
+        from graphite_tpu_torch.trace.synthetic import memory_stress_trace
         sc = SimConfig(ConfigFile.from_string(
             "[general]\\ntotal_cores = 16\\n[network]\\n"
             "user = emesh_hop_counter\\n[clock_skew_management]\\n"
             "scheme = lax\\n"))
         r = Simulator(sc, fft_trace(16, points_per_tile=16),
                       device="cpu").run()
+        # the memory slice: iocoom + MSI on the FFT's loads, and memstress
+        mc = SimConfig(ConfigFile.from_string(config_text(
+            16, core="iocoom", shared_mem=True, clock_scheme="lax")))
+        rm = Simulator(mc, fft_trace(16, points_per_tile=16,
+                                     use_memory=True), device="cpu").run()
+        rs = Simulator(mc, memory_stress_trace(16, n_accesses=10),
+                       device="cpu").run()
+        assert rm.mem_counters["l2_misses"].sum() > 0
+        assert rs.mem_counters["l2_misses"].sum() > 0
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "graphite_tpu")
                      and sys.modules[m] is not None)
@@ -140,15 +153,26 @@ def test_wrappers_refuse_other_devices():
     "memory", "iocoom", "hop_by_hop", "atac", "lax_p2p", "barrier_host",
     "stream", "telemetry", "profile", "hist", "dvfs_spec", "fft_memory"])
 def test_unsupported_configurations_raise(what):
+    """Configurations outside the ported slices.  Since the memory slice,
+    "memory" is a trace with memory operands under the MOSI protocol,
+    "iocoom" the iocoom core with memory under an ackwise directory, and
+    "fft_memory" the FFT's loads over a hop-by-hop MEMORY network."""
     tb = fft_trace(16, points_per_tile=16)
     kw, sc = {}, cfg()
-    item = {"memory": 6, "iocoom": 7, "hop_by_hop": 9, "atac": 9,
+    item = {"memory": 8, "iocoom": 8, "hop_by_hop": 9, "atac": 9,
             "lax_p2p": 4, "barrier_host": 4, "stream": 11, "telemetry": 12,
-            "profile": 12, "hist": 12, "dvfs_spec": 10, "fft_memory": 6}[what]
+            "profile": 12, "hist": 12, "dvfs_spec": 10, "fft_memory": 9}[what]
     if what == "memory":
         tb.flags[0, 1] = FLAG_MEM0_VALID
+        sc = cfg(extra="[caching_protocol]\n"
+                 "type = pr_l1_pr_l2_dram_directory_mosi")
     elif what == "iocoom":
-        sc = cfg(extra='[tile]\nmodel_list = "<16, iocoom, T1, T1, T1>"')
+        tb.flags[0, 1] = FLAG_MEM0_VALID
+        sc = cfg(extra='[tile]\nmodel_list = "<16, iocoom, T1, T1, T1>"\n'
+                 "[dram_directory]\ndirectory_type = ackwise")
+    elif what == "fft_memory":
+        tb = fft_trace(16, points_per_tile=16, use_memory=True)
+        sc = cfg(extra="[network]\nmemory = emesh_hop_by_hop")
     elif what in ("hop_by_hop", "atac"):
         sc = cfg(user="emesh_hop_by_hop" if what == "hop_by_hop"
                  else "atac")
@@ -163,8 +187,6 @@ def test_unsupported_configurations_raise(what):
     elif what in ("telemetry", "profile", "hist"):
         kw = {what: object()}
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        if what == "fft_memory":
-            fft_trace(16, use_memory=True)
         Simulator(sc, tb, device="cpu", **kw)
 
 
