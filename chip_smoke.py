@@ -8,7 +8,7 @@ toolkit; builds the kernels from `graphite_tpu_torch/csrc/` at first use.
 Phases, one JSON line each:
 
  1. device: the card, its power limit, torch/CUDA versions;
- 2. build: the eight kernels, one `nvcc` each, in parallel, and what
+ 2. build: the ten kernels, one `nvcc` each, in parallel, and what
     `-Xptxas -v` says of each (registers, spills);
  3. kernels: each kernel against its plain PyTorch version on the card,
     `torch.equal` on every output and every state tensor it updates —
@@ -60,10 +60,24 @@ The memory slice (the private-L1/L2 MSI engine and the iocoom core):
     SimResults field and the line census equal;
  8. the companion at full width: warmup and MEM_RUNS timed runs (all
     eight kernels launched), a torch.profiler window;
- 9. the north star: the 1024-tile FFT with its loads on MSI full_map
+
+The contention NoCs of the USER net (emesh_hop_by_hop and ATAC):
+ 9. NoC kernels: bench.py's 256-tile hop-by-hop RADIX and the same RADIX
+    under ATAC, each kernel against its plain version on their first
+    RADIX_CHECKED iterations; `noc_route` / `atac_route` and the routed
+    `user_mailbox` timed at the first all-to-all state; the edge states
+    (all lanes to one tile, one row crossed, self-sends, M/G/1-fallback
+    cells, no sender, contention off, 1024 tiles, distance_based ATAC),
+    each with the counts that show its branch;
+10. card against CPU: both RADIX paths at 64 tiles, every SimResults
+    field and the final NoC queues equal;
+11. both 256-tile RADIX paths timed: warmup and RADIX_RUNS runs (the
+    route kernel and the step's four launched once an iteration), a
+    torch.profiler window;
+12. the north star: the 1024-tile FFT with its loads on MSI full_map
     (auto directory, emesh_hop_counter, lax_barrier) once to completion.
 
-Then the kernels line (all eight), the card's name and power limit, and
+Then the kernels line (all ten), the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.  Any failure exits non-zero before the
 last line.  Imports nothing of JAX or of the JAX package.  To compare
 two trees on one card, run each tree's own copy of this script in one
@@ -90,6 +104,8 @@ REPLACES = {
     "mem_home_start": "graphite_tpu/memory/engine.py:2219",
     "mem_requester_fill": "graphite_tpu/memory/engine.py:2547",
     "iocoom_commit": "graphite_tpu/models/iocoom.py:129",
+    "noc_route": "graphite_tpu/models/network_hop_by_hop.py:123",
+    "atac_route": "graphite_tpu/models/network_atac.py:176",
 }
 # the headline's kernels (the memory slice's are MEM_KERNELS)
 KERNEL_ORDER = tuple(REPLACES)[:4]
@@ -198,6 +214,12 @@ def unit_args(name, ctx, st, ln):
                      syscall_rt_ps=p.syscall_rt_ps, lanes=ln))
     if name == "user_mailbox":
         return (p.net, ln, st.core.clock_ps, st.models_enabled, st.net), {}
+    if name == "noc_route":
+        return (p.user_hbh, st.noc_user, ln, st.core.clock_ps,
+                st.models_enabled), {}
+    if name == "atac_route":
+        return (p.user_atac, st.noc_user, ln, st.core.clock_ps,
+                st.models_enabled), {}
     if name == "barrier_sync":
         return (ln, st.core.clock_ps, st.sync), {}
     if name == "lane_commit":
@@ -247,6 +269,10 @@ def checked_iteration(ctx, st, ln, stats, sim=None) -> None:
     if ctx.params.mem is not None:
         checked_memory_engine(sim, st, ln, stats)
     if "net" in units:
+        if ctx.params.user_hbh is not None:
+            check_kernel("noc_route", ctx, st, ln, stats)
+        elif ctx.params.user_atac is not None:
+            check_kernel("atac_route", ctx, st, ln, stats)
         check_kernel("user_mailbox", ctx, st, ln, stats)
     if "barrier" in units:
         check_kernel("barrier_sync", ctx, st, ln, stats)
@@ -1352,6 +1378,8 @@ def kernel_tensors(name, sim, ctx, st, ln) -> list:
     if name == "lane_commit":
         a, k = unit_args(name, ctx, st, ln)
         args = mod.bound_args(*a, k["n_follow"], k["req"], k["ioc_tile"])
+    elif name in NOC_KERNELS + ("user_mailbox",):
+        args = mod.bound_args(*unit_args(name, ctx, st, ln)[0])
     elif name == "iocoom_commit":
         args = mod.bound_args(sim.params.iocoom, st.ioc, ln,
                               sim.models.ioc_tile, core, sim.device_trace,
@@ -1391,6 +1419,14 @@ def fresh_times(name, sim, ctx, st, ln) -> dict:
         def plain():
             ops.lane_commit_plain(*a, k["n_follow"], req=k["req"],
                                   ioc_tile=k["ioc_tile"])
+    elif name in NOC_KERNELS + ("user_mailbox",):
+        a, _ = unit_args(name, ctx, st, ln)
+
+        def call():
+            getattr(ops, name)(*a)
+
+        def plain():
+            getattr(ops, name + "_plain")(*a)
     else:
         def call():
             mem_call(name, sim, st, ln, plain=False)
@@ -1666,6 +1702,342 @@ def phase_north_star(dev) -> dict:
             "launches": ops.launch_counts()}
 
 
+# --- the contention NoCs of the USER net: RADIX under hop-by-hop / ATAC ----
+
+NOC_KERNELS = ("noc_route", "atac_route")
+NOC_NETS = {"noc_route": "emesh_hop_by_hop", "atac_route": "atac"}
+RADIX_TILES = 256
+RADIX_KEYS = 1024
+RADIX_CHECKED = 300
+RADIX_RUNS = 3
+
+
+def new_stats() -> dict:
+    return {k: {"checks": 0, "max_abs_err": 0}
+            for k in KERNEL_ORDER + MEM_KERNELS + NOC_KERNELS}
+
+
+def radix_sim(n_tiles, network, device, *, keys_per_tile=RADIX_KEYS,
+              clock_scheme="lax", extra=""):
+    """bench.py's hop-by-hop RADIX companion (`config_text(256, network=
+    "emesh_hop_by_hop", clock_scheme="lax")`, `radix_trace(256,
+    keys_per_tile=1024)`, inner_block 64), or the same under `network`."""
+    from graphite_tpu_torch.config import ConfigFile, SimConfig
+    from graphite_tpu_torch.config.template import config_text
+    from graphite_tpu_torch.engine.simulator import Simulator
+    from graphite_tpu_torch.trace.benchmarks import radix_trace
+
+    text = config_text(n_tiles, network=network,
+                       clock_scheme=clock_scheme) + extra
+    return Simulator(SimConfig(ConfigFile.from_string(text)),
+                     radix_trace(n_tiles, keys_per_tile=keys_per_tile),
+                     device=device, inner_block=64)
+
+
+def in_all_to_all(sim, st) -> bool:
+    """Whether at least half the lanes stand at a SEND record after the
+    first barrier of a digit pass with more than one send a lane (the
+    permutation's all-to-all)."""
+    import torch
+
+    from graphite_tpu_torch.trace.schema import Op
+
+    tr = sim.device_trace
+    idx = torch.clamp(st.core.idx, max=tr.length - 1).to(torch.int64)
+    op = torch.gather(tr.op, 1, idx[:, None])[:, 0]
+    prev = torch.gather(tr.op, 1, torch.clamp(idx - 1, min=0)[:, None])[:, 0]
+    n = int(((op == int(Op.SEND)) & (prev == int(Op.SEND)) & ~st.done)
+            .sum())
+    return 2 * n >= st.done.shape[0]
+
+
+def noc_rows(name, st) -> "object":
+    q = st.noc_user
+    return (q.queues if name == "noc_route" else q.hub_queues).data
+
+
+def noc_bound(name, sim, ctx, st, ln) -> tuple:
+    """(bound_ms, bound_by, bytes, ops) of one route call at this state:
+    five inputs a lane read and its latency written once, and each queue
+    row the call's packets touch read and written once (counted from the
+    plain version's result on a copy)."""
+    import torch
+
+    from graphite_tpu_torch import ops
+    from graphite_tpu_torch.trace.schema import Op
+
+    T = sim.params.n_tiles
+    st2, ln2 = st.clone(), ln.clone()
+    a, _ = unit_args(name, ctx, st2, ln2)
+    getattr(ops, name + "_plain")(*a)
+    before, after = noc_rows(name, st), noc_rows(name, st2)
+    touched = int((before != after).any(dim=1).sum())
+    nbytes = T * (4 + 4 + 4 + 1 + 8 + 8) + 1 + touched * 2 * 80
+    live = int((ln.active & (ln.op == int(Op.SEND))).sum())
+    cells = sim.params.user_hbh.mesh_width + sim.params.user_hbh.mesh_height \
+        if name == "noc_route" else 2
+    nops = T * 30 + live * (cells + 2) * 40
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / INT_OPS_PER_S * 1e3
+    del st2, ln2
+    torch.cuda.synchronize()
+    return ((t_bytes, "bytes", nbytes, nops) if t_bytes >= t_ops
+            else (t_ops, "operations", nbytes, nops))
+
+
+def phase_noc_kernels(dev, stats) -> dict:
+    """Each RADIX path at 256 tiles, its first RADIX_CHECKED iterations
+    checked kernel by kernel; then, at the first all-to-all state found,
+    the route kernel and the routed `user_mailbox` timed from that very
+    state."""
+    from graphite_tpu_torch import ops
+    from graphite_tpu_torch.trace.schema import Op
+
+    out = {}
+    for name in NOC_KERNELS:
+        sim = radix_sim(RADIX_TILES, NOC_NETS[name], dev)
+        found = {}
+
+        def watch(i, st, ln):
+            if "at" not in found and in_all_to_all(sim, st):
+                found["at"] = i
+                found["state"] = (st.clone(), ln.clone())
+
+        t0 = time.perf_counter()
+        n = run_checked(sim, RADIX_CHECKED, stats, watch)
+        checked_s = time.perf_counter() - t0
+        if "at" not in found:
+            raise AssertionError(f"{name}: no checked RADIX iteration is "
+                                 "in the all-to-all")
+        st, ln = found["state"]
+        ctx = sim_ctx(sim)
+        dummy = new_stats()
+        check_kernel("lane_fetch_cost", ctx, st, ln, dummy)
+        sends = int((ln.active & (ln.op == int(Op.SEND))).sum())
+        timings = {}
+        for unit in (name, "user_mailbox"):
+            timings[unit] = fresh_times(unit, sim, ctx, st, ln)
+            if unit == name:
+                b = noc_bound(name, sim, ctx, st, ln)
+            else:
+                b = bound("user_mailbox", sim, st, ln)
+            timings[unit].update(bound_ms=b[0], bound_by=b[1], bytes=b[2],
+                                 ops=b[3])
+            # advance through the unit, as the step would
+            getattr(ops, unit)(*unit_args(unit, ctx, st, ln)[0])
+        out[name] = {"checked": n, "checked_s": checked_s,
+                     "all_to_all_at": found["at"], "sends_at_state": sends,
+                     "timings": timings}
+    return out
+
+
+def noc_sim(n_tiles, network, device, extra=""):
+    """A sim of `network` whose lanes the edge cases set by hand (its own
+    trace, a message ring, is never run)."""
+    from graphite_tpu_torch.config import ConfigFile, SimConfig
+    from graphite_tpu_torch.config.template import config_text
+    from graphite_tpu_torch.engine.simulator import Simulator
+    from graphite_tpu_torch.trace import synthetic
+
+    text = config_text(n_tiles, network=network, clock_scheme="lax") + extra
+    return Simulator(SimConfig(ConfigFile.from_string(text)),
+                     synthetic.message_ring_batch(n_tiles, 2),
+                     device=device)
+
+
+def noc_edge_cases(dev, stats) -> dict:
+    """Hand-made lane sets over random queue states (`old`: the share of
+    queues whose window start lies past every packet, so their cells
+    take the M/G/1 fallback), each route kernel and the routed mailbox
+    against their plain versions, with counts that show each case took
+    its branch."""
+    import torch
+
+    from graphite_tpu_torch.models.network_atac import atac_use_onet
+    from graphite_tpu_torch.models.queue_models import COL_ANA, COL_REQS
+    from graphite_tpu_torch.trace.schema import Op
+
+    g = torch.Generator(device="cpu").manual_seed(4321)
+    out = {}
+
+    def rint(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g)
+
+    def case(label, name, sim, dst, *, old=0.0, senders=None):
+        T = sim.params.n_tiles
+        st, ln = sim.state.clone(), sim._lanes.clone()
+        lanes = torch.arange(T)
+        send = torch.ones(T, dtype=torch.bool) if senders is None else senders
+        ln.op.copy_(torch.where(send, int(Op.SEND), int(Op.BBLOCK)))
+        ln.active.copy_(send)
+        ln.aux0.copy_(dst)
+        ln.aux1.copy_(rint(0, 300, T))
+        st.core.clock_ps.copy_(rint(0, 4_000_000, T))
+        q = noc_rows(name, st)
+        n = q.shape[0]
+        qt = rint(0, 4000, n)
+        ws = torch.clamp(qt - rint(0, 150, n), min=0)
+        ws = torch.where(torch.rand(n, generator=g) < old, 10**7, ws)
+        n_arr = rint(1, 40, n)
+        sum_st = n_arr * rint(1, 12, n)
+        data = torch.stack([qt, ws, rint(1, 5000, n), sum_st,
+                            sum_st * rint(1, 12, n), n_arr, n_arr, sum_st,
+                            rint(0, 900, n), torch.zeros(n, dtype=torch.int64)],
+                           dim=1)
+        data[-1] = 0                                  # the scratch row
+        q.copy_(data)
+        before = q.clone()
+        ctx = sim_ctx(sim)
+        check_kernel(name, ctx, st, ln, stats)
+        check_kernel("user_mailbox", ctx, st, ln, stats)
+        after = noc_rows(name, st)
+        row = {"kernel": name, "tiles": T, "senders": int(send.sum()),
+               "self_sends": int((send & (dst == lanes)).sum()),
+               "requests": int((after[:, COL_REQS] - before[:, COL_REQS])
+                               .sum()),
+               "analytical": int((after[:, COL_ANA] - before[:, COL_ANA])
+                                 .sum()),
+               "rows_changed": int((after != before).any(dim=1).sum()),
+               "lat_sum": int(ln.route_lat_ps.sum())}
+        if name == "atac_route":
+            p = sim.params.user_atac
+            onet = atac_use_onet(p, lanes, dst.to(torch.int64)) & send
+            cross = atac_use_onet(dataclasses.replace(
+                p, global_routing_strategy="cluster_based"), lanes,
+                dst.to(torch.int64)) & send
+            row.update(onet_lanes=int(onet.sum()),
+                       cross_cluster_enet=int((cross & ~onet).sum()))
+        out[label] = row
+
+    T = RADIX_TILES
+    lanes = torch.arange(T)
+    for name in NOC_KERNELS:
+        net = NOC_NETS[name]
+        sim = noc_sim(T, net, dev)
+        case(f"{name}/all_to_one", name, sim, torch.full((T,), 27))
+        case(f"{name}/cross_one_row", name, sim,
+             torch.where(lanes < 16, 15 - lanes, lanes), senders=lanes < 16)
+        case(f"{name}/self_sends", name, sim, lanes)
+        case(f"{name}/mg1_fallback", name, sim, rint(0, T, T), old=0.6)
+        case(f"{name}/no_sender", name, sim, torch.full((T,), 3),
+             senders=torch.zeros(T, dtype=torch.bool))
+        off = noc_sim(T, net, dev, f"[network/{net}/queue_model]\n"
+                      "enabled = false\n")
+        case(f"{name}/contention_off", name, off, rint(0, T, T))
+        case(f"{name}/tiles_1024", name, noc_sim(1024, net, dev),
+             rint(0, 1024, 1024))
+    dist = noc_sim(T, "atac", dev, "[network/atac]\n"
+                   "global_routing_strategy = distance_based\n")
+    case("atac_route/distance_based", "atac_route", dist,
+         torch.where(lanes % 2 == 0, torch.clamp(lanes + 2, max=T - 1),
+                     rint(0, T, T)))
+    torch.cuda.empty_cache()
+    bad = []
+    for label, c in out.items():
+        kind = label.split("/")[1]
+        quiet = kind in ("no_sender", "contention_off") or (
+            label == "atac_route/self_sends")
+        if quiet and (c["rows_changed"] or c["requests"]):
+            bad.append(f"{label}: the queues changed")
+        if not quiet and c["requests"] <= 0:
+            bad.append(f"{label}: no queue took a request")
+        if kind == "mg1_fallback" and c["analytical"] <= 0:
+            bad.append(f"{label}: no M/G/1 fallback")
+        if kind == "self_sends" and c["self_sends"] != c["senders"]:
+            bad.append(f"{label}: not every lane sent to itself")
+        if kind == "distance_based" and c["cross_cluster_enet"] <= 0:
+            bad.append(f"{label}: no short inter-cluster send on the ENet")
+    if bad:
+        raise AssertionError(f"NoC edge cases missed their path: {bad}")
+    return out
+
+
+def phase_noc_end_to_end(dev, card: str) -> None:
+    """Both RADIX paths at 64 tiles on the card and on the CPU: every
+    SimResults field, n_quanta, last_n_iterations and the final USER-NoC
+    queues equal."""
+    for name in NOC_KERNELS:
+        res = {}
+        for where in (dev, "cpu"):
+            sim = radix_sim(64, NOC_NETS[name], where, keys_per_tile=128)
+            t0 = time.perf_counter()
+            r = sim.run()
+            res[str(where)] = (r, sim.last_n_iterations,
+                               time.perf_counter() - t0,
+                               noc_rows(name, sim.state).cpu())
+        (rc, ic, wc, qc), (rp, ip, wp, qp) = res[str(dev)], res["cpu"]
+        bad = [f for f in RESULT_FIELDS
+               if not result_field_equal(getattr(rc, f), getattr(rp, f))]
+        if ic != ip:
+            bad.append("last_n_iterations")
+        if not bool((qc == qp).all()):
+            bad.append("noc_user")
+        emit({"phase": "noc_end_to_end", "case": f"radix64_{name}",
+              "card": card, "equal": not bad, "bad": bad,
+              "iterations": ic, "n_quanta": rc.n_quanta, "card_s": wc,
+              "cpu_s": wp, "total_instructions": rc.total_instructions,
+              "completion_time_ps": rc.completion_time_ps})
+        if bad:
+            raise AssertionError(f"card != cpu on radix64 {name}: {bad}")
+
+
+def phase_radix(dev, name) -> tuple:
+    """A 256-tile RADIX path at full width: warmup, then RADIX_RUNS timed
+    runs from one initial state, every launch count set to 0 just before
+    each and read just after; the route kernel and every kernel of the
+    step must launch once an iteration."""
+    import torch
+
+    from graphite_tpu_torch import ops
+
+    sim = radix_sim(RADIX_TILES, NOC_NETS[name], dev)
+    init = sim.state._map(lambda t: t.to("cpu", copy=True))
+    t0 = time.perf_counter()
+    sim.warmup()
+    warm_s = time.perf_counter() - t0
+    walls = []
+    path = KERNEL_ORDER + (name,)
+    for _ in range(RADIX_RUNS):
+        sim.state = init._map(lambda t: t.to(dev, copy=True))
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = sim.run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        iters = sim.last_n_iterations
+        off = {k: counts[k] for k in path if counts[k] != iters}
+        if off:
+            raise AssertionError(f"{name} RADIX: {off} launches in {iters} "
+                                 "iterations: expected one an iteration")
+        other = {k: n for k, n in counts.items() if n and k not in path}
+        if other:
+            raise AssertionError(f"{name} RADIX launched {other}")
+    if not bool(sim.state.done.all()):
+        raise AssertionError(f"{name} RADIX: not every tile is done")
+    expect = (trace_instructions(sim.trace_batch)
+              + int(r.recv_instructions.sum())
+              + int(r.sync_instructions.sum()))
+    if r.total_instructions != expect:
+        raise AssertionError(f"{name} RADIX: {r.total_instructions} "
+                             f"instructions, trace implies {expect}")
+    med = sorted(walls)[len(walls) // 2]
+    return {
+        "network": NOC_NETS[name], "tiles": RADIX_TILES,
+        "keys_per_tile": RADIX_KEYS, "runs": RADIX_RUNS, "wall_s": walls,
+        "wall_s_median": med, "warmup_s": warm_s,
+        "sim_instr_per_s_median": r.total_instructions / med,
+        "us_per_iteration_median": med / iters * 1e6,
+        "total_instructions": r.total_instructions,
+        "completion_time_ps": r.completion_time_ps, "iterations": iters,
+        "n_quanta": r.n_quanta, "mailbox_depth": sim.params.mailbox_depth,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "launches": counts,
+    }, sim, init
+
+
 def is_kernel(key: str, name: str) -> bool:
     """Whether a profiler key names `name`'s kernel (a template
     instantiation's key starts with its return type)."""
@@ -1709,8 +2081,7 @@ def main() -> int:
     from graphite_tpu_torch.trace.benchmarks import fft_trace
 
     batch = fft_trace(1024, points_per_tile=2048)
-    stats = {k: {"checks": 0, "max_abs_err": 0}
-             for k in KERNEL_ORDER + MEM_KERNELS}
+    stats = new_stats()
     kinfo = phase_kernels(dev, batch, stats)
     for name in KERNEL_ORDER:
         row = {"phase": "kernel", "name": name, "card": smi,
@@ -1781,18 +2152,62 @@ def main() -> int:
                                  f"{n} companion calls")
     del csim, cinit
     torch.cuda.empty_cache()
+
+    # the contention NoCs of the USER net: RADIX under hop-by-hop and ATAC
+    ninfo = phase_noc_kernels(dev, stats)
+    for name in NOC_KERNELS:
+        row = {"phase": "noc_kernel", "name": name, "card": smi,
+               "checks_equal": stats[name]["checks"],
+               **{k: v for k, v in ninfo[name].items() if k != "timings"}}
+        for unit, t in ninfo[name]["timings"].items():
+            row[unit] = {"us": t["ms"] * 1e3, "call_us": t["call_ms"] * 1e3,
+                         "plain_us": t["plain_ms"] * 1e3,
+                         "bound_us": t["bound_ms"] * 1e3,
+                         "bytes": t["bytes"]}
+        emit(row)
+    emit({"phase": "noc_edge_cases", "card": smi,
+          "cases": noc_edge_cases(dev, stats)})
+    phase_noc_end_to_end(dev, smi)
+    radix = {}
+    for name in NOC_KERNELS:
+        rinfo, rsim, rinit = phase_radix(dev, name)
+        emit({"phase": "radix", "card": smi, **rinfo})
+        # the first inner block wholly inside the first all-to-all
+        ib = rsim.params.inner_block
+        start = (ninfo[name]["all_to_all_at"] // ib + 1) * ib
+        prof = phase_profile(rsim, rinit, start,
+                             rinfo["wall_s_median"] / rinfo["iterations"])
+        emit({"phase": "radix_profile", "network": NOC_NETS[name],
+              "card": smi, **prof})
+        # one device launch a call; the device trace can drop the window's
+        # first two iterations (observed: 62 of 64 for every kernel)
+        n = prof["iterations"]
+        for k in KERNEL_ORDER + (name,):
+            one = [v["launches"] for key, v in prof["kernels"].items()
+                   if is_kernel(key, k)]
+            if len(one) != 1 or not n - 2 <= one[0] <= n:
+                raise AssertionError(f"{k}: device launches {one} in {n} "
+                                     f"RADIX ({NOC_NETS[name]}) calls")
+        radix[name] = rinfo
+        del rsim, rinit
+        torch.cuda.empty_cache()
+
     emit({"phase": "north_star", "card": smi, **phase_north_star(dev)})
 
     rows = []
     send = kinfo["timings"]["send_phase"]
-    for name in KERNEL_ORDER + MEM_KERNELS:
+    for name in KERNEL_ORDER + MEM_KERNELS + NOC_KERNELS:
         mem = name in MEM_KERNELS
-        tm = minfo["timings"][name] if mem else send[name]
+        if name in NOC_KERNELS:
+            tm, path = ninfo[name]["timings"][name], radix[name]
+        else:
+            tm = minfo["timings"][name] if mem else send[name]
+            path = comp if mem else full
         rows.append({
             "name": name, "route": "cuda",
             "source": ops.KERNELS[name].source,
             "replaces": REPLACES[name],
-            "launches": (comp if mem else full)["launches"][name],
+            "launches": path["launches"][name],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],

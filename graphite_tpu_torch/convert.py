@@ -10,7 +10,9 @@ JAX:
  - `state_from_arrays(tree, device)` builds the port's `SimState` from a
    `jax.device_get` of a JAX `SimState` — any object or mapping with the
    same field names and numpy leaves — memory (`MemState`, the private-
-   L2 engine's) and iocoom (`IocoomState`) state included;
+   L2 engine's), iocoom (`IocoomState`) and the USER net's contention
+   queues (`noc_user`: hop-by-hop `NocState` or ATAC `AtacState`)
+   included;
  - `state_to_arrays(state)` is the inverse: a nested dict of numpy arrays
    with the JAX leaves' names, dtypes and shapes.
 
@@ -34,12 +36,15 @@ from graphite_tpu_torch.memory.state import (
     RequesterState, TxnState,
 )
 from graphite_tpu_torch.models.iocoom import IocoomState
+from graphite_tpu_torch.models.network_atac import AtacState
+from graphite_tpu_torch.models.network_hop_by_hop import NocState
+from graphite_tpu_torch.models.queue_models import QueueArrays
 from graphite_tpu_torch.trace.schema import _FIELDS, TraceBatch
 
 # SimState leaves of subsystems this package has not ported, with the
 # ROADMAP.md queue-1 item that ports each
 _UNPORTED = {
-    "noc_user": 9, "telemetry": 12, "profile": 12, "dvfs_rt": 10, "hist": 12,
+    "telemetry": 12, "profile": 12, "dvfs_rt": 10, "hist": 12,
 }
 # uint32 words the port holds as int32 bit patterns (memory/state.py); the
 # other uint32 leaves (miss types, line utilization, the functional
@@ -61,6 +66,8 @@ _SUBTREES = {
     ("MemState", "txn"): TxnState, ("MemState", "mail"): MemMailboxes,
     ("MemState", "req"): RequesterState,
     ("MemState", "counters"): MemCounters,
+    ("NocState", "queues"): QueueArrays,
+    ("AtacState", "hub_queues"): QueueArrays,
 }
 
 
@@ -121,6 +128,14 @@ def mem_state_from_arrays(tree, device):
     return _node(MemState, tree, device, optional=("l2_util", "mt"))
 
 
+def noc_state_from_arrays(tree, device):
+    """The USER net's contention queues: a hop-by-hop `NocState` (leaf
+    `queues`) or an ATAC `AtacState` (leaf `hub_queues`)."""
+    if _get(tree, "queues") is not None:
+        return _node(NocState, tree, device)
+    return _node(AtacState, tree, device)
+
+
 def state_from_arrays(tree, device) -> SimState:
     """The port's SimState from a JAX SimState's numpy leaves."""
     for name, item in _UNPORTED.items():
@@ -132,6 +147,7 @@ def state_from_arrays(tree, device) -> SimState:
     p2p = _get(tree, "p2p_round")
     mem = _get(tree, "mem")
     ioc = _get(tree, "ioc")
+    noc = _get(tree, "noc_user")
     return SimState(
         core=_node(CoreState, _get(tree, "core"), device),
         net=_node(UserNetState, _get(tree, "net"), device),
@@ -142,6 +158,7 @@ def state_from_arrays(tree, device) -> SimState:
         p2p_round=None if p2p is None else _leaf(p2p, device),
         mem=None if mem is None else mem_state_from_arrays(mem, device),
         ioc=None if ioc is None else _node(IocoomState, ioc, device),
+        noc_user=None if noc is None else noc_state_from_arrays(noc, device),
     )
 
 

@@ -39,6 +39,7 @@
 #include "common.cuh"
 
 #define KIND_MAGIC 0
+#define KIND_ROUTED 2
 #define WARPS 4          // rows (warps) a CTA
 
 struct NetParams {
@@ -61,6 +62,7 @@ struct MailboxArgs {
     int64_t* recv_time;
     int32_t* recv_lat;
     const bool* enabled;
+    const int64_t* route_lat;    // [T] under KIND_ROUTED, else null
     int64_t T, D, kind, freq_mhz, mesh_width, hop_cycles, flit_bits;
 };
 
@@ -102,12 +104,14 @@ struct Send {          // a send s -> d, applied by one thread
 };
 
 // append s's packet to ring (d, s) whose head and count the caller holds
+template <bool ROUTED>
 __device__ __forceinline__ Send push(const MailboxArgs& a,
                                      const NetParams& p, int s, int d,
                                      int32_t payload, int64_t clock,
                                      bool en, int32_t& h, int32_t& c) {
     const int T = (int)a.T, D = (int)a.D;
-    const int64_t lat = route_latency_ps(s, d, payload, en, p);
+    const int64_t lat = ROUTED ? a.route_lat[s]
+                               : route_latency_ps(s, d, payload, en, p);
     int slot = h % D;
     if (slot < 0) slot += D;
     const size_t cell = ((size_t)d * D + slot) * T + s;
@@ -137,6 +141,7 @@ __device__ __forceinline__ void write_recv(const MailboxArgs& a, int t,
     a.recv_now[t] = now;
 }
 
+template <bool ROUTED>
 __global__ void __launch_bounds__(WARPS * 32)
 user_mailbox_kernel(const MailboxArgs a) {
     const int T = (int)a.T, D = (int)a.D;
@@ -173,7 +178,7 @@ user_mailbox_kernel(const MailboxArgs a) {
         int32_t cs = a.count[(size_t)d * T + t];
         // lane t's send, unless its receiver d reads that cell
         if (sends && !live_any(d_a0, d_op, d_act) && want_of(d_a0, T) != t) {
-            push(a, p, t, d, pay_t, clk_t, en, hs, cs);
+            push<ROUTED>(a, p, t, d, pay_t, clk_t, en, hs, cs);
             a.head[(size_t)d * T + t] = hs;
             a.count[(size_t)d * T + t] = cs;
         }
@@ -181,7 +186,8 @@ user_mailbox_kernel(const MailboxArgs a) {
         const bool w_sends = w_act && w_op == OP_SEND &&
                              clamp_i32(w_a0, 0, T - 1) == t;
         Send fresh{0, 0, -1};
-        if (w_sends) fresh = push(a, p, want, t, w_pay, w_clk, en, h, c);
+        if (w_sends)
+            fresh = push<ROUTED>(a, p, want, t, w_pay, w_clk, en, h, c);
         const int tail = tail_slot(h, c, D);
         int64_t time;
         int32_t lat;
@@ -209,7 +215,7 @@ user_mailbox_kernel(const MailboxArgs a) {
         const int o = a.op[s], x = a.aux0[s];
         if (ac & (o == OP_SEND) & (clamp_i32(x, 0, T - 1) == t)) {
             int32_t h = a.head[row + s], c = a.count[row + s];
-            push(a, p, s, t, a.aux1[s], a.clock[s], en, h, c);
+            push<ROUTED>(a, p, s, t, a.aux1[s], a.clock[s], en, h, c);
             a.head[row + s] = h;
             a.count[row + s] = c;
         }
@@ -246,10 +252,13 @@ user_mailbox_kernel(const MailboxArgs a) {
 
 extern "C" int gt_user_mailbox(const MailboxArgs* args,
                                cudaStream_t stream) {
-    static_assert(sizeof(MailboxArgs) == 21 * 8,
-                  "MailboxArgs: 14 pointers and 7 int64");
+    static_assert(sizeof(MailboxArgs) == 22 * 8,
+                  "MailboxArgs: 15 pointers and 7 int64");
     const int T = (int)args->T;
-    user_mailbox_kernel<<<(T + WARPS - 1) / WARPS, WARPS * 32, 0,
-                          stream>>>(*args);
+    const int blocks = (T + WARPS - 1) / WARPS;
+    if (args->kind == KIND_ROUTED)
+        user_mailbox_kernel<true><<<blocks, WARPS * 32, 0, stream>>>(*args);
+    else
+        user_mailbox_kernel<false><<<blocks, WARPS * 32, 0, stream>>>(*args);
     return (int)cudaGetLastError();
 }

@@ -4,8 +4,9 @@ Port of `graphite_tpu/engine/simulator.py` for the path this package
 supports: the simple in-order and the iocoom cores (mixed per tile by
 `[tile] model_list`), without a memory subsystem or with the private-L1/L2
 MSI directory protocol (`full_map` directory, magic or emesh_hop_counter
-MEMORY network), the magic or emesh_hop_counter USER network, and the
-`lax` / `lax_barrier` clock-skew schemes, resident on one device.  `SimResults`, `summary()`,
+MEMORY network), the magic, emesh_hop_counter, emesh_hop_by_hop or atac
+USER network, and the `lax` / `lax_barrier` clock-skew schemes, resident
+on one device.  `SimResults`, `summary()`,
 `DeadlockError` and `MailboxOverflowError` match the JAX package.
 
 Every other configuration raises `NotImplementedError` naming the
@@ -38,6 +39,10 @@ from graphite_tpu_torch.memory.params import MemParams
 from graphite_tpu_torch.memory.state import COUNTER_NAMES, init_mem_state
 from graphite_tpu_torch.models.dvfs import DvfsParams, module_freq_mhz
 from graphite_tpu_torch.models.iocoom import IocoomParams, init_iocoom_state
+from graphite_tpu_torch.models.network_atac import AtacParams, init_atac_state
+from graphite_tpu_torch.models.network_hop_by_hop import (
+    HopByHopParams, init_noc_state,
+)
 from graphite_tpu_torch.models.network_user import UserNetworkParams
 from graphite_tpu_torch.time_types import cycles_to_ps, ns_to_ps, ps_to_ns
 from graphite_tpu_torch.trace.schema import (
@@ -339,6 +344,16 @@ class Simulator:
         else:
             self.quantum_ps = None  # lax: one unbounded quantum
         net_params = UserNetworkParams.from_config(config)
+        # the USER net's contention model (`engine/simulator.py:561-571`
+        # of the JAX package); the mailbox then takes its routed latency
+        user_hbh = user_atac = None
+        if config.network_types[0] == "emesh_hop_by_hop":
+            user_hbh = HopByHopParams.from_config(config, "user")
+        elif config.network_types[0] == "atac":
+            user_atac = AtacParams.from_config(config, "user")
+        if user_hbh is not None or user_atac is not None:
+            net_params = UserNetworkParams(kind="routed",
+                                           freq_mhz=net_params.freq_mhz)
 
         if mailbox_depth is None:
             mailbox_depth = auto_mailbox_depth(trace)
@@ -367,6 +382,8 @@ class Simulator:
             mem=mem_params,
             iocoom=iocoom_params,
             iocoom_tiles=iocoom_tiles,
+            user_hbh=user_hbh,
+            user_atac=user_atac,
         )
 
         self.device = resolve_device(device)
@@ -396,6 +413,10 @@ class Simulator:
             errors=torch.zeros(n_tiles, dtype=torch.int64,
                                device=self.device),
         )
+        if user_hbh is not None:
+            state.noc_user = init_noc_state(user_hbh, self.device)
+        elif user_atac is not None:
+            state.noc_user = init_atac_state(user_atac, self.device)
         models = ModelCtx()
         if mem_params is not None:
             state.mem = init_mem_state(mem_params, self.device)

@@ -128,6 +128,9 @@ class SimState(_TensorTree):
     p2p_round: "torch.Tensor | None" = None   # int32[]
     mem: "object | None" = None   # memory.state.MemState
     ioc: "object | None" = None   # models.iocoom.IocoomState
+    # the USER net's contention queues: models.network_hop_by_hop.NocState
+    # under emesh_hop_by_hop, models.network_atac.AtacState under atac
+    noc_user: "object | None" = None
 
 
 @dataclasses.dataclass
@@ -207,6 +210,8 @@ class Lanes(_TensorTree):
     done: torch.Tensor          # bool[T] — latched done (this iteration)
     active: torch.Tensor        # bool[T]
     cost_ps: torch.Tensor       # int64[T]
+    # noc_route / atac_route: each lane's routed latency (arrival - clock)
+    route_lat_ps: torch.Tensor  # int64[T]
     # user_mailbox
     recv_now: torch.Tensor      # bool[T]
     recv_time: torch.Tensor     # int64[T]

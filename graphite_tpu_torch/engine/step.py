@@ -9,6 +9,8 @@ loop (mailbox rings, barrier tables, core counters, memory state):
 
     lane_fetch_cost   kernel   fetch + done/active + cost       (:193-403)
     memory engine     3 kernels + PyTorch, six phases           (:279-340)
+    noc_route or      kernel   the sends through a contention   (:414-431)
+      atac_route               USER net (emesh_hop_by_hop, atac)
     user_mailbox      kernel   sends, then receives             (:413-502)
     barrier_sync      kernel   init/arrive/release/split forms  (:505-577)
     mutex + cond      PyTorch                                   (:578-777)
@@ -52,7 +54,8 @@ from graphite_tpu_torch.engine.state import (
 )
 from graphite_tpu_torch.models.network_user import UserNetworkParams
 from graphite_tpu_torch.ops import (
-    barrier_sync, iocoom_commit, lane_commit, lane_fetch_cost, user_mailbox,
+    atac_route, barrier_sync, iocoom_commit, lane_commit, lane_fetch_cost,
+    noc_route, user_mailbox,
 )
 from graphite_tpu_torch.ops.barrier_sync import elect_min
 from graphite_tpu_torch.trace.schema import Op
@@ -91,6 +94,8 @@ class EngineParams:
 
     n_tiles: int
     static_cost_cycles: tuple  # 20 ints (`carbon_sim.cfg:189-200`)
+    # the mailbox's network: the zero-load model, or kind "routed" under
+    # a contention net (then `user_hbh` or `user_atac` routes each send)
     net: UserNetworkParams
     bp_enabled: bool = True
     bp_size: int = 1024
@@ -109,6 +114,11 @@ class EngineParams:
     # and which tiles run it (None = all, when set)
     iocoom: "object" = None
     iocoom_tiles: "tuple | None" = None
+    # the USER net's contention model (models.network_hop_by_hop.
+    # HopByHopParams or models.network_atac.AtacParams; None for both
+    # under magic / emesh_hop_counter)
+    user_hbh: "object" = None
+    user_atac: "object" = None
 
     def n_follow(self, trace_length: int) -> int:
         """Follow-on PLAIN records a lane may commit per iteration (the
@@ -397,6 +407,14 @@ def subquantum_iteration(params: EngineParams, trace: DeviceTrace,
                            state.models_enabled, lanes.progress,
                            lanes.mem_ok)
     if "net" in units:
+        # a route call with no live sender is the identity on the queues
+        # (the JAX net block's gate is only a skip)
+        if params.user_hbh is not None:
+            noc_route(params.user_hbh, state.noc_user, lanes, core.clock_ps,
+                      state.models_enabled)
+        elif params.user_atac is not None:
+            atac_route(params.user_atac, state.noc_user, lanes,
+                       core.clock_ps, state.models_enabled)
         user_mailbox(params.net, lanes, core.clock_ps, state.models_enabled,
                      state.net)
     if "barrier" in units:

@@ -1,4 +1,4 @@
-"""USER-network latency: magic and emesh_hop_counter.
+"""USER-network latency: magic and emesh_hop_counter (zero-load).
 
 Port of `graphite_tpu/models/network_user.py`.  Reference semantics:
  - magic (`network_model_magic.cc:15-22`): every packet takes exactly one
@@ -11,6 +11,9 @@ Port of `graphite_tpu/models/network_user.py`.  Reference semantics:
 
 `route_latency_ps` is the plain tensor form; the `user_mailbox` CUDA
 kernel computes the same expression per lane (`csrc/user_mailbox.cu`).
+The contention nets, emesh_hop_by_hop and atac, route in
+`models/network_hop_by_hop.py` and `models/network_atac.py`; the mailbox
+then takes each lane's routed latency.
 """
 
 from __future__ import annotations
@@ -28,7 +31,10 @@ NET_PACKET_HEADER_BYTES = 64  # sizeof(NetPacket), `network.h:27-53`
 
 @dataclasses.dataclass(frozen=True)
 class UserNetworkParams:
-    kind: str                 # "magic" | "emesh_hop_counter"
+    # "magic" | "emesh_hop_counter" | "atac" (a placeholder); "routed" is
+    # the mailbox's network under a contention net: each send's latency
+    # is the one `noc_route` / `atac_route` wrote (engine/step.py)
+    kind: str
     freq_mhz: int             # NETWORK_USER domain frequency
     mesh_width: int = 0
     hop_latency_cycles: int = 2   # router.delay + link.delay
@@ -40,7 +46,14 @@ class UserNetworkParams:
         freq_mhz = _network_domain_freq_mhz(cfg)
         if kind == "magic":
             return cls(kind="magic", freq_mhz=freq_mhz)
-        if kind == "emesh_hop_counter":
+        if kind == "atac":
+            # routing and timing live in AtacParams (models/network_atac);
+            # this placeholder carries the domain frequency
+            return cls(kind="atac", freq_mhz=freq_mhz)
+        if kind in ("emesh_hop_counter", "emesh_hop_by_hop"):
+            # the zero-load (hop-counter) basis; under emesh_hop_by_hop the
+            # contention engine (HopByHopParams, EngineParams.user_hbh)
+            # carries the timing the USER net charges
             section = f"network/{kind}"
             router = cfg.cfg.get_int(f"{section}/router/delay", 1)
             link = cfg.cfg.get_int(f"{section}/link/delay", 1)
@@ -49,10 +62,6 @@ class UserNetworkParams:
             return cls(kind="emesh_hop_counter", freq_mhz=freq_mhz,
                        mesh_width=w, hop_latency_cycles=router + link,
                        flit_width_bits=flit)
-        if kind in ("emesh_hop_by_hop", "atac"):
-            raise NotImplementedError(
-                f"USER network {kind!r} is not ported yet (ROADMAP.md "
-                "queue 1, item 9)")
         raise ValueError(f"unsupported user network model: {kind}")
 
 

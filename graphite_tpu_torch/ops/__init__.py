@@ -4,6 +4,8 @@
 | ------------------ | ------------------------------------------------- |
 | `lane_fetch_cost`  | fetch :193-241, done/active :242-251, cost :342-403 |
 | `user_mailbox`     | `_net_block` :413-502 (+ network_user.py:96-116)  |
+| `noc_route`        | `_net_block` :414-423 (+ network_hop_by_hop.py)   |
+| `atac_route`       | `_net_block` :424-431 (+ network_atac.py)         |
 | `barrier_sync`     | `_barrier_block` :505-577, `_elect_min` :136-146   |
 | `lane_commit`      | commit :842-915/:1098-1140, batching :999-1066    |
 
@@ -23,6 +25,7 @@ launches and `packs` the argument sets it validated.
 """
 
 from graphite_tpu_torch.ops import (
+    atac_route as _atac_route,
     barrier_sync as _barrier_sync,
     iocoom_commit as _iocoom_commit,
     lane_commit as _lane_commit,
@@ -30,8 +33,10 @@ from graphite_tpu_torch.ops import (
     mem_home_start as _mem_home_start,
     mem_requester as _mem_requester,
     mem_requester_fill as _mem_requester_fill,
+    noc_route as _noc_route,
     user_mailbox as _user_mailbox,
 )
+from graphite_tpu_torch.ops.atac_route import atac_route, atac_route_plain
 from graphite_tpu_torch.ops.barrier_sync import barrier_sync, barrier_sync_plain
 from graphite_tpu_torch.ops.iocoom_commit import (
     iocoom_commit, iocoom_commit_plain,
@@ -49,13 +54,14 @@ from graphite_tpu_torch.ops.mem_requester import (
 from graphite_tpu_torch.ops.mem_requester_fill import (
     mem_requester_fill, mem_requester_fill_plain,
 )
+from graphite_tpu_torch.ops.noc_route import noc_route, noc_route_plain
 from graphite_tpu_torch.ops.user_mailbox import user_mailbox, user_mailbox_plain
 
 KERNELS = {
     m.KERNEL.name: m.KERNEL
     for m in (_lane_fetch_cost, _user_mailbox, _barrier_sync, _lane_commit,
               _mem_requester, _mem_home_start, _mem_requester_fill,
-              _iocoom_commit)
+              _iocoom_commit, _noc_route, _atac_route)
 }
 
 
@@ -75,11 +81,11 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNELS", "barrier_sync", "barrier_sync_plain", "iocoom_commit",
+    "KERNELS", "atac_route", "atac_route_plain", "barrier_sync", "barrier_sync_plain", "iocoom_commit",
     "iocoom_commit_plain", "lane_commit", "lane_commit_plain",
     "lane_fetch_cost", "lane_fetch_cost_plain", "launch_counts",
     "mem_home_start", "mem_home_start_plain", "mem_requester",
     "mem_requester_fill", "mem_requester_fill_plain", "mem_requester_plain",
-    "pack_counts", "reset_launch_counts", "user_mailbox",
+    "noc_route", "noc_route_plain", "pack_counts", "reset_launch_counts", "user_mailbox",
     "user_mailbox_plain",
 ]

@@ -2,7 +2,10 @@
 
 Replaces `_net_block` (`graphite_tpu/engine/step.py:413-502`) with the
 emesh_hop_counter / magic `route_latency_ps`
-(`graphite_tpu/models/network_user.py:96-116`).  Kernel:
+(`graphite_tpu/models/network_user.py:96-116`), or, under a contention
+net (emesh_hop_by_hop, atac: network kind "routed"), with each lane's
+latency as `noc_route` / `atac_route` routed it (`lanes.route_lat_ps`;
+the kernel's KIND_ROUTED instantiation).  Kernel:
 `csrc/user_mailbox.cu`, one launch per call: each send is applied by
 exactly one thread — the receiver's, when its receive reads the cell the
 send writes, else the sender's — so every receive matches against the
@@ -36,28 +39,31 @@ from graphite_tpu_torch.ops.build import Kernel, pack_args
 from graphite_tpu_torch.trace.schema import Op
 
 ANY_SENDER = -1
-KIND_MAGIC, KIND_EMESH = 0, 1
+KIND_MAGIC, KIND_EMESH, KIND_ROUTED = 0, 1, 2
+_KINDS = {"magic": KIND_MAGIC, "emesh_hop_counter": KIND_EMESH,
+          "routed": KIND_ROUTED}
 
 _ARGS = ("op", "aux0", "aux1", "active", "clock_ps", "time_ps", "lat_ps",
          "head", "count", "overflow", "recv_now", "recv_time", "recv_lat",
-         "enabled")
+         "enabled", "route_lat_ps")
 
 
 def _pack(tensors: tuple, key: tuple):
     """Validate and pack one argument set (`MailboxArgs` in
-    csrc/user_mailbox.cu: the 14 pointers, then T, D and the network)."""
+    csrc/user_mailbox.cu: the 15 pointers — the routed latency null
+    unless routed — then T, D and the network)."""
     (net_params,) = key
-    emesh = net_params.kind == "emesh_hop_counter"
-    if not emesh and net_params.kind != "magic":
+    kind = _KINDS.get(net_params.kind)
+    if kind is None:
         raise NotImplementedError(f"user_mailbox: network {net_params.kind}")
     T, D, _ = tensors[5].shape
     i32, i64, b = torch.int32, torch.int64, torch.bool
     shapes = ((i32, (T,)), (i32, (T,)), (i32, (T,)), (b, (T,)), (i64, (T,)),
               (i64, (T, D, T)), (i32, (T, D, T)), (i32, (T, T)),
               (i32, (T, T)), (b, ()), (b, (T,)), (i64, (T,)), (i32, (T,)),
-              (b, ()))
+              (b, ()), (i64, (T,)))
     return pack_args(tensors, [(n, *s) for n, s in zip(_ARGS, shapes)], (
-        T, D, KIND_EMESH if emesh else KIND_MAGIC, net_params.freq_mhz,
+        T, D, kind, net_params.freq_mhz,
         net_params.mesh_width, net_params.hop_latency_cycles,
         net_params.flit_width_bits))
 
@@ -76,8 +82,9 @@ def user_mailbox_plain(net_params: UserNetworkParams, lanes: Lanes,
     # --- send phase -------------------------------------------------------
     send_now = active & (op == Op.SEND)
     dst = torch.clamp(aux0, 0, T - 1)
-    lat = route_latency_ps(net_params, tiles.to(torch.int32), dst,
-                           lanes.aux1, enabled)
+    lat = (lanes.route_lat_ps if net_params.kind == "routed" else
+           route_latency_ps(net_params, tiles.to(torch.int32), dst,
+                            lanes.aux1, enabled))
     s = send_now
     sd, st = dst[s].to(torch.int64), tiles[s]
     slot = torch.fmod(net.head[sd, st], D).to(torch.int64)
@@ -129,5 +136,6 @@ def bound_args(net_params: UserNetworkParams, lanes: Lanes,
     """The (tensors, key) a call binds, in `MailboxArgs` order."""
     return ((lanes.op, lanes.aux0, lanes.aux1, lanes.active, clock,
              net.time_ps, net.lat_ps, net.head, net.count, net.overflow,
-             lanes.recv_now, lanes.recv_time, lanes.recv_lat, enabled),
+             lanes.recv_now, lanes.recv_time, lanes.recv_lat, enabled,
+             lanes.route_lat_ps if net_params.kind == "routed" else None),
             (net_params,))

@@ -36,3 +36,8 @@ def ps_to_ns(ps):
 
 def ns_to_ps(ns):
     return ns * PS_PER_NS
+
+
+def ps_to_cycles(ps, freq_mhz):
+    """Time::toCycles (`time_types.h:104-109`): ceil(ps*freq_mhz/1e6)."""
+    return nn_ceil_div(ps * freq_mhz, PS_PER_CYCLE_NUMERATOR)

@@ -1,4 +1,4 @@
-"""SPLASH-2 FFT trace program, built as [T, L] numpy columns.
+"""SPLASH-2 FFT and RADIX trace programs.
 
 Port of `graphite_tpu/trace/benchmarks.py` `fft_trace`: a six-step FFT
 skeleton — BARRIER_INIT, then three all-to-all transposes (tile t sends
@@ -11,6 +11,11 @@ tile 0 initializes the barrier, as in the JAX package's record-by-record
 builder.  Both forms are bit-equal to the JAX package's arrays; the
 memory form is assembled from columns here (the record-by-record form
 is O(T^2) appends at 1024 tiles).
+
+`radix_trace` is `graphite_tpu/trace/benchmarks.py:132-183`, record by
+record: four digit passes, each a histogram, a log-tree prefix sum (up
+and down sweeps of point-to-point messages) and a permutation with an
+all-to-all key exchange, barriers between the phases.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 
 from graphite_tpu_torch.trace.schema import (
     _FIELDS, FLAG_MEM0_VALID, FLAG_SIMPLE_MOV_LOAD, NO_REG, Op, TraceBatch,
+    TraceBuilder,
 )
 from graphite_tpu_torch.trace.synthetic import _batch_from_columns
 
@@ -114,3 +120,51 @@ def _fft_trace_with_memory(n_tiles: int, points_per_tile: int,
     out["op"][0, 0] = int(Op.BARRIER_INIT)
     out["aux1"][0, 0] = T
     return TraceBatch(**out)
+
+
+def radix_trace(n_tiles: int, keys_per_tile: int = 1024,
+                radix: int = 16) -> TraceBatch:
+    """Radix sort (SPLASH-2 radix.C structure), with the JAX package's
+    per-key costs: ~2 records a key in the histogram, ~4 in the
+    permutation."""
+    T = n_tiles
+    builders = [TraceBuilder() for _ in range(T)]
+    builders[0].barrier_init(0, T)
+
+    def barrier():
+        for b in builders:
+            b.barrier_wait(0)
+
+    digits = max(1, 32 // max(1, int(np.log2(radix))))
+    levels = max(1, int(np.log2(max(2, T))))
+    a2a_bytes = max(8, keys_per_tile * 4 // max(1, T))
+    for _ in range(min(digits, 4)):
+        for b in builders:
+            b.bblock(keys_per_tile * 2 + radix, keys_per_tile * 2 + radix)
+        barrier()
+        for lvl in range(levels):
+            stride = 1 << lvl
+            for t, b in enumerate(builders):
+                if t % (stride * 2) == 0 and t + stride < T:
+                    b.recv(t + stride, radix * 4)
+                elif t % (stride * 2) == stride:
+                    b.send(t - stride, radix * 4)
+            for b in builders:
+                b.bblock(radix, radix)
+        for lvl in reversed(range(levels)):
+            stride = 1 << lvl
+            for t, b in enumerate(builders):
+                if t % (stride * 2) == 0 and t + stride < T:
+                    b.send(t + stride, radix * 4)
+                elif t % (stride * 2) == stride:
+                    b.recv(t - stride, radix * 4)
+        barrier()
+        for b in builders:
+            b.bblock(keys_per_tile * 4, keys_per_tile * 4)
+        for t, b in enumerate(builders):
+            for i in range(1, T):
+                b.send((t + i) % T, a2a_bytes)
+            for i in range(1, T):
+                b.recv((t - i) % T, a2a_bytes)
+        barrier()
+    return TraceBatch.from_builders(builders)

@@ -156,7 +156,10 @@ def test_unsupported_configurations_raise(what):
     """Configurations outside the ported slices.  Since the memory slice,
     "memory" is a trace with memory operands under the MOSI protocol,
     "iocoom" the iocoom core with memory under an ackwise directory, and
-    "fft_memory" the FFT's loads over a hop-by-hop MEMORY network."""
+    "fft_memory" the FFT's loads over a hop-by-hop MEMORY network; since
+    the contention-NoC slice (the USER net under both), "hop_by_hop" and
+    "atac" are the FFT's loads with that net as the USER and the MEMORY
+    net."""
     tb = fft_trace(16, points_per_tile=16)
     kw, sc = {}, cfg()
     item = {"memory": 8, "iocoom": 8, "hop_by_hop": 9, "atac": 9,
@@ -174,8 +177,9 @@ def test_unsupported_configurations_raise(what):
         tb = fft_trace(16, points_per_tile=16, use_memory=True)
         sc = cfg(extra="[network]\nmemory = emesh_hop_by_hop")
     elif what in ("hop_by_hop", "atac"):
-        sc = cfg(user="emesh_hop_by_hop" if what == "hop_by_hop"
-                 else "atac")
+        net = "emesh_hop_by_hop" if what == "hop_by_hop" else "atac"
+        tb = fft_trace(16, points_per_tile=16, use_memory=True)
+        sc = cfg(user=net, extra=f"[network]\nmemory = {net}")
     elif what == "lax_p2p":
         sc = cfg(scheme="lax_p2p")
     elif what == "barrier_host":

@@ -130,9 +130,9 @@ def test_state_round_trip_mid_run():
 
 
 def test_state_from_arrays_refuses_unported_subsystems():
-    # the iocoom and memory states are ported (the memory slice); the
-    # hop-by-hop USER NoC's is not
+    # the iocoom and memory states are ported (the memory slice), and so
+    # is the USER NoC's (the contention-NoC slice); the histograms are not
     host = jax.device_get(j_init_state(4, core_freq_mhz=1000))
-    host = host.replace(noc_user={"x": np.zeros(4)})
-    with pytest.raises(NotImplementedError, match="item 9"):
+    host = host.replace(hist={"x": np.zeros(4)})
+    with pytest.raises(NotImplementedError, match="item 12"):
         state_from_arrays(host, "cpu")
