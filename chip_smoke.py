@@ -8,7 +8,7 @@ toolkit; builds the kernels from `graphite_tpu_torch/csrc/` at first use.
 Phases, one JSON line each:
 
  1. device: the card, its power limit, torch/CUDA versions;
- 2. build: the ten kernels, one `nvcc` each, in parallel, and what
+ 2. build: the eleven kernels, one `nvcc` each, in parallel, and what
     `-Xptxas -v` says of each (registers, spills);
  3. kernels: each kernel against its plain PyTorch version on the card,
     `torch.equal` on every output and every state tensor it updates —
@@ -74,20 +74,44 @@ The contention NoCs of the USER net (emesh_hop_by_hop and ATAC):
 11. both 256-tile RADIX paths timed: warmup and RADIX_RUNS runs (the
     route kernel and the step's four launched once an iteration), a
     torch.profiler window;
-12. the north star: the 1024-tile FFT with its loads on MSI full_map
-    (auto directory, emesh_hop_counter, lax_barrier) once to completion.
 
-Then the kernels line (all ten), the card's name and power limit, and
-last `{"ok": true, "device": {...}}`.  Any failure exits non-zero before the
-last line.  Imports nothing of JAX or of the JAX package.  To compare
-two trees on one card, run each tree's own copy of this script in one
-call (parent, change, change, parent).
+The contention NoCs as the MEMORY net (emesh_hop_by_hop and ATAC):
+12. the companion under each net, its first NET_CHECKED iterations
+    checked phase by phase (the three memory kernels route inside;
+    phases 4-5 as the replay of their CUDA graph, which launches
+    `mem_net_route` twice, against the same phases routed by its plain
+    version), then the four kernels timed at its first miss-heavy
+    state; edge states of the routes and fan-outs, each with the counts
+    that show its branch;
+13. card against CPU: the 16-tile mutex-serialized and line-disjoint
+    traces and the companion under each net, every SimResults field,
+    the line census and `MemState.noc` equal;
+14. the companion under each net timed (MEM_RUNS runs, exact launch
+    counts an iteration) and a torch.profiler window (`mem_net_route`
+    two device launches a call);
+15. the north star: the 1024-tile FFT with its loads on MSI full_map
+    (auto directory, emesh_hop_counter, lax_barrier) once to completion;
+    then its hop-by-hop rung (emesh_hop_by_hop as the USER and the
+    MEMORY net) once to completion.
+
+Then the kernels line (all eleven), the card's name and power limit,
+and last `{"ok": true, "device": {...}}`.  Any failure exits non-zero
+before the last line.  Each phase's line carries `t_s`, the script's
+seconds so far.  Imports nothing of JAX or of the JAX package.  To
+compare two trees on one card, run each tree's own copy of this script
+in one call (parent, change, change, parent); `python3 chip_smoke.py
+--ab companion|north_star TREE [TREE ...]` times the companion or the
+north star alone with the package of each tree, in turns (A B B A).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
+import multiprocessing
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -106,6 +130,7 @@ REPLACES = {
     "iocoom_commit": "graphite_tpu/models/iocoom.py:129",
     "noc_route": "graphite_tpu/models/network_hop_by_hop.py:123",
     "atac_route": "graphite_tpu/models/network_atac.py:176",
+    "mem_net_route": "graphite_tpu/memory/engine.py:251",
 }
 # the headline's kernels (the memory slice's are MEM_KERNELS)
 KERNEL_ORDER = tuple(REPLACES)[:4]
@@ -144,7 +169,14 @@ quantum = 1000
 """
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries `t_s`, the script's seconds
+    so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -174,17 +206,30 @@ def leaves(tree, prefix=""):
 def max_abs_err(a, b, what: str) -> int:
     """The largest |a - b| over every leaf of two tensor trees (integer
     and bool leaves, compared as int64); raises on a leaf-set, dtype or
-    shape mismatch."""
+    shape mismatch.  Equal integer trees cost one comparison of all their
+    bytes and one host read; the leaves are compared one by one only
+    when the bytes differ (or a leaf is a float)."""
     import torch
 
     la, lb = dict(leaves(a)), dict(leaves(b))
     if la.keys() != lb.keys():
         raise AssertionError(f"{what}: leaf sets differ")
-    worst = 0
     for name, x in la.items():
         y = lb[name]
         if x.dtype != y.dtype or x.shape != y.shape:
             raise AssertionError(f"{what}: {name} dtype/shape differ")
+
+    def flat(tree):
+        return torch.cat([t.reshape(-1).view(torch.uint8)
+                          for t in tree.values()])
+
+    if la and not any(x.dtype.is_floating_point for x in la.values()):
+        xa = flat(la)
+        if torch.equal(xa, flat(lb).to(xa.device)):
+            return 0
+    worst = 0
+    for name, x in la.items():
+        y = lb[name].to(x.device)
         if not torch.equal(x, y):
             err = int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
             worst = max(worst, err, 1)
@@ -1078,6 +1123,30 @@ def phase_full_width(dev, batch) -> dict:
     }, sim, init
 
 
+PROFILE_WARMUP = 8          # iterations the profiler's warm-up step runs
+
+
+def checked_profile(sim, init, start: int, wall_per_iter_s: float, names,
+                    slack: int, what: str, per_call=None) -> dict:
+    """`phase_profile`, and the check that each kernel of `names` made one
+    device launch a call (`per_call[name]` for a kernel that launches more
+    than once an iteration): each launched within `slack` calls of the
+    window's iterations (launches the device trace drops at the window's
+    start), and no more."""
+    prof = phase_profile(sim, init, start, wall_per_iter_s)
+    n = prof["iterations"]
+    bad = {}
+    for name in names:
+        k = (per_call or {}).get(name, 1)
+        one = [v["launches"] for k_, v in prof["kernels"].items()
+               if is_kernel(k_, name)]
+        if len(one) != 1 or not k * (n - slack) <= one[0] <= k * n:
+            bad[name] = one
+    if bad:
+        raise AssertionError(f"{what}: device launches {bad} in {n} calls")
+    return prof
+
+
 def phase_profile(sim, init, start: int, wall_per_iter_s: float) -> dict:
     """torch.profiler over one `inner_block` of the headline run, from
     iteration `start`: kernel device time and launches by name, and the
@@ -1100,14 +1169,25 @@ def phase_profile(sim, init, start: int, wall_per_iter_s: float) -> dict:
                                  sim.models)
         int(sim._lanes.progress.item())      # the loop's one host read
 
-    block(start)
+    pre = min(PROFILE_WARMUP, start)
+    block(start - pre)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # one small op first: the device trace can miss the first
-        # launches after the profiler starts
+    # the device trace can miss the first launches after the profiler
+    # starts: a warm-up step (the `pre` iterations before the window)
+    # starts the tracer and is discarded; the active step is the window
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                  active=1, repeat=1)
+                 ) as prof:
+        torch.ones(1, device=sim.device).add_(1)
+        block(pre)
+        torch.cuda.synchronize()
+        prof.step()
+        # one small op and a pause before the window: the tracer has lost
+        # most of a window launched right after it started
         torch.ones(1, device=sim.device).add_(1)
         torch.cuda.synchronize()
+        time.sleep(0.05)
         t0 = time.perf_counter()
         block(n)
         torch.cuda.synchronize()
@@ -1115,8 +1195,10 @@ def phase_profile(sim, init, start: int, wall_per_iter_s: float) -> dict:
     kernels = {}
     for e in prof.key_averages():
         # device-side events only (kernels, copies): a host op that
-        # launched one carries its device time too
-        if e.device_type != DeviceType.CUDA:
+        # launched one carries its device time too, and the schedule's
+        # step annotation spans the window without being device work
+        if (e.device_type != DeviceType.CUDA
+                or e.key.startswith("ProfilerStep")):
             continue
         dev_us = e.self_device_time_total
         kernels[e.key] = {"launches": e.count, "device_us": dev_us,
@@ -1135,9 +1217,10 @@ def phase_profile(sim, init, start: int, wall_per_iter_s: float) -> dict:
 MEM_KERNELS = ("mem_requester", "mem_home_start", "mem_requester_fill",
                "iocoom_commit")
 COMPANION_POINTS = 512
-COMPANION_CHECKED = 300     # of the companion's 768 iterations
+COMPANION_CHECKED = 150     # of the companion's 768 iterations (its
+#                             first miss-heavy state is iteration 128)
 STRESS_CHECKED = 300
-MEM_RUNS = 2
+MEM_RUNS = 5                # odd: the median is one run's wall
 TINY_L2 = "[l2_cache/T1]\ncache_size = 4\nassociativity = 1\n"
 TINY_DIR = "[dram_directory]\ntotal_entries = 32\nassociativity = 2\n"
 ROUND_ROBIN = ("[l1_dcache/T1]\nreplacement_policy = round_robin\n"
@@ -1261,20 +1344,53 @@ def check_mem_kernel(name, sim, st, ln, stats) -> None:
 
 
 def checked_memory_engine(sim, st, ln, stats) -> None:
-    """`memory.engine.memory_engine_step` as the card runs it, its three
-    kernels checked against their plain versions."""
-    import torch
+    """`memory.engine.memory_engine_step` as the card runs it (phases 2
+    and 4-5 as the replays of its two CUDA graphs), its three kernels
+    checked against their plain versions, and under a contention net the
+    graph of phases 4-5 against the same phases routed by the plain
+    version of `mem_net_route`."""
+    mctx, en = sim.models.mem, st.models_enabled
+    graphs = mctx.phase_graphs
+    evict, sharer_acks = graphs.get(mctx, st.mem, en, st.core.freq_mhz,
+                                    ln.progress)
+    check_mem_kernel("mem_requester", sim, st, ln, stats)
+    graphs.replay(evict)
+    check_mem_kernel("mem_home_start", sim, st, ln, stats)
+    if st.mem.noc is None:
+        graphs.replay(sharer_acks)
+    else:
+        check_route_phases(sim, st, ln, stats, sharer_acks)
+    check_mem_kernel("mem_requester_fill", sim, st, ln, stats)
+
+
+def check_route_phases(sim, st, ln, stats, sharer_acks) -> None:
+    """Phases 4 and 5 under a contention MEMORY net: on a copy with their
+    routes through the plain version of `mem_net_route`, on the originals
+    as the replay of their CUDA graph (`sharer_acks`, two `mem_net_route`
+    launches); every leaf of both must be equal."""
+    import importlib
 
     from graphite_tpu_torch.memory import engine as me
 
-    mctx, en = sim.models.mem, st.models_enabled
-    check_mem_kernel("mem_requester", sim, st, ln, stats)
-    me.home_evictions(mctx, st.mem, en, ln.progress)
-    check_mem_kernel("mem_home_start", sim, st, ln, stats)
-    me.sharer_step(mctx, st.mem, mctx.cycle_ps(st.core.freq_mhz, en), en,
-                   ln.progress)
-    me.home_acks_and_finish(mctx, st.mem, en, ln.progress)
-    check_mem_kernel("mem_requester_fill", sim, st, ln, stats)
+    mnr = importlib.import_module("graphite_tpu_torch.ops.mem_net_route")
+    mctx = sim.models.mem
+    st2, ln2 = st.clone(), ln.clone()
+    en2 = st2.models_enabled
+    orig, mnr.mem_net_route = mnr.mem_net_route, mnr.mem_net_route_plain
+    try:
+        me.sharer_step(mctx, st2.mem, mctx.cycle_ps(st2.core.freq_mhz, en2),
+                       en2, ln2.progress)
+        me.home_acks_and_finish(mctx, st2.mem, en2, ln2.progress)
+    finally:
+        mnr.mem_net_route = orig
+    mctx.phase_graphs.replay(sharer_acks)
+    err = max_abs_err(_Pair(st, ln), _Pair(st2, ln2), "mem_net_route")
+    stats["mem_net_route"]["checks"] += 1
+    stats["mem_net_route"]["max_abs_err"] = max(
+        stats["mem_net_route"]["max_abs_err"], err)
+    if err:
+        raise AssertionError(f"mem_net_route: kernel != plain version "
+                             f"(max abs err {err})")
 
 
 def sim_ctx(sim):
@@ -1655,6 +1771,7 @@ def phase_companion(dev) -> dict:
     return {
         "tiles": 64, "points_per_tile": COMPANION_POINTS, "runs": MEM_RUNS,
         "wall_s": walls, "wall_s_median": med, "warmup_s": warm_s,
+        "wall_s_spread": max(walls) - min(walls),
         "sim_instr_per_s_median": r.total_instructions / med,
         "us_per_iteration_median": med / iters * 1e6,
         "total_instructions": r.total_instructions,
@@ -1714,7 +1831,8 @@ RADIX_RUNS = 3
 
 def new_stats() -> dict:
     return {k: {"checks": 0, "max_abs_err": 0}
-            for k in KERNEL_ORDER + MEM_KERNELS + NOC_KERNELS}
+            for k in KERNEL_ORDER + MEM_KERNELS + NOC_KERNELS
+            + ("mem_net_route",)}
 
 
 def radix_sim(n_tiles, network, device, *, keys_per_tile=RADIX_KEYS,
@@ -2038,6 +2156,637 @@ def phase_radix(dev, name) -> tuple:
     }, sim, init
 
 
+# --- the contention nets as the MEMORY net: the MSI engine's routes ------
+
+MEM_NETS = ("emesh_hop_by_hop", "atac")
+NET_EXTRA = "[network]\nmemory = {net}\n"
+NET_CHECKED = 300           # of each routed companion's iterations
+BIG_TILES = 1024            # the widest edge state
+
+
+def net_companion(device, net, extra=""):
+    """bench.py's coherence companion with `net` as the MEMORY net (the
+    USER net stays the hop counter)."""
+    from graphite_tpu_torch.trace.benchmarks import fft_trace
+
+    return mem_sim(64, fft_trace(64, points_per_tile=COMPANION_POINTS,
+                                 use_memory=True), device, core="iocoom",
+                   extra=NET_EXTRA.format(net=net) + extra)
+
+
+def mutex_rmw_batch(n, rounds, base=0x900000, lines=2):
+    """tests/test_memory_net.py's mutex-serialized shared-line
+    read-modify-writes."""
+    from graphite_tpu_torch.trace.schema import TraceBatch, TraceBuilder
+
+    bs = [TraceBuilder() for _ in range(n)]
+    bs[0].mutex_init(0)
+    bs[0].barrier_init(9, n)
+    for b in bs:
+        b.barrier_wait(9)
+    for r in range(n * rounds):
+        b = bs[r % n]
+        b.mutex_lock(0)
+        for ln in range(lines):
+            b.load(base + 64 * ln, 8)
+            b.store(base + 64 * ln, 8)
+        b.mutex_unlock(0)
+    return TraceBatch.from_builders(bs)
+
+
+def disjoint_stream_batch(n, accesses=60):
+    """tests/test_memory_net.py's line-disjoint per-tile streams."""
+    from graphite_tpu_torch.trace.schema import TraceBatch, TraceBuilder
+
+    bs = [TraceBuilder() for _ in range(n)]
+    for t, b in enumerate(bs):
+        for i in range(accesses):
+            addr = 0x100000 + (t * accesses + i) * 64
+            (b.store if i % 3 == 0 else b.load)(addr, 8)
+    return TraceBatch.from_builders(bs)
+
+
+def mem_noc_rows(noc):
+    return (noc.queues if hasattr(noc, "queues") else noc.hub_queues).data
+
+
+def random_rows(g, n, old, device):
+    """A random [n, 10] queue state (`old`: the share of rows whose window
+    start lies past every packet: the M/G/1 fallback); the scratch row 0."""
+    import torch
+
+    def rint(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=g)
+
+    qt = rint(0, 4000)
+    ws = torch.clamp(qt - rint(0, 150), min=0)
+    ws = torch.where(torch.rand(n, generator=g) < old, 10**7, ws)
+    n_arr = rint(1, 40)
+    sum_st = n_arr * rint(1, 12)
+    data = torch.stack([qt, ws, rint(1, 5000), sum_st, sum_st * rint(1, 12),
+                        n_arr, n_arr, sum_st, rint(0, 900),
+                        torch.zeros(n, dtype=torch.int64)], dim=1)
+    data[-1] = 0
+    return data.to(device)
+
+
+def route_call(sim, noc, plain: bool, *packet):
+    import importlib
+
+    mnr = importlib.import_module("graphite_tpu_torch.ops.mem_net_route")
+    fn = mnr.mem_net_route_plain if plain else mnr.mem_net_route
+    return fn(sim.params.mem, noc, *packet)
+
+
+def check_route(sim, noc, stats, *packet):
+    """`mem_net_route` against its plain version (on a copy of the
+    queues): the arrivals and every queue column equal."""
+    import torch
+
+    noc2 = noc.clone()
+    a2 = route_call(sim, noc2, True, *packet)
+    a1 = route_call(sim, noc, False, *packet)
+    err = max(int((a1 - a2).abs().max()),
+              max_abs_err(noc, noc2, "mem_net_route"))
+    stats["mem_net_route"]["checks"] += 1
+    stats["mem_net_route"]["max_abs_err"] = max(
+        stats["mem_net_route"]["max_abs_err"], err)
+    if err or not torch.equal(a1, a2):
+        raise AssertionError(f"mem_net_route: kernel != plain version "
+                             f"(max abs err {err})")
+    return a1
+
+
+def phase_memory_net_kernels(dev, stats) -> dict:
+    """The companion under each contention MEMORY net: its first
+    NET_CHECKED iterations checked kernel by kernel (the three memory
+    kernels route inside, phases 4-5 through `mem_net_route`), then the
+    four kernels timed at its first miss-heavy state."""
+    import torch
+
+    from graphite_tpu_torch.models.queue_models import COL_REQS
+
+    out = {}
+    for net in MEM_NETS:
+        sim = net_companion(dev, net)
+        found = {}
+
+        def watch(i, st, ln):
+            if "at" not in found and miss_heavy(sim, st):
+                found["at"] = i
+                found["state"] = (st.clone(), ln.clone())
+
+        t0 = time.perf_counter()
+        n = run_checked(sim, NET_CHECKED, stats, watch)
+        torch.cuda.synchronize()
+        checked_s = time.perf_counter() - t0
+        if "at" not in found:
+            raise AssertionError(f"{net}: no checked iteration is "
+                                 "miss-heavy")
+        reqs = int(mem_noc_rows(sim.state.mem.noc)[:, COL_REQS].sum())
+        if reqs <= 0:
+            raise AssertionError(f"{net}: no queue took a request")
+        sim.state, sim._lanes = found["state"]
+        out[net] = {"checked": n, "checked_s": checked_s,
+                    "miss_heavy_at": found["at"], "noc_requests": reqs,
+                    "timings": time_net_kernels(sim, *found["state"])}
+        del sim
+        torch.cuda.empty_cache()
+    return out
+
+
+def net_rows_touched(name, sim, st, ln) -> int:
+    """The MEMORY-net queue rows one call of `name` changes (its plain
+    version on a copy)."""
+    st2, ln2 = st.clone(), ln.clone()
+    mem_call(name, sim, st2, ln2, plain=True)
+    before, after = mem_noc_rows(st.mem.noc), mem_noc_rows(st2.mem.noc)
+    return int((before != after).any(dim=1).sum())
+
+
+def time_net_kernels(sim, st, ln) -> dict:
+    """At the miss-heavy state: the three memory kernels (their routed
+    instantiations) and `mem_net_route` (the larger of phases 4-5's two
+    packet sets), each timed from the state it meets; bounds as
+    `mem_bound` plus each touched queue row read and written once."""
+    from graphite_tpu_torch.memory import engine as me
+
+    ctx = sim_ctx(sim)
+    mctx, en = sim.models.mem, st.models_enabled
+    out = {}
+
+    def timed(name):
+        out[name] = fresh_times(name, sim, ctx, st, ln)
+        b_ms, _, nbytes, _ = mem_bound(name, sim, st, ln)
+        nbytes += net_rows_touched(name, sim, st, ln) * 160
+        out[name].update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                         bound_by="bytes", bytes=nbytes, ops=0)
+
+    check_kernel("lane_fetch_cost", ctx, st, ln, new_stats())
+    timed("mem_requester")
+    mem_call("mem_requester", sim, st, ln, plain=False)
+    me.home_evictions(mctx, st.mem, en, ln.progress)
+    timed("mem_home_start")
+    mem_call("mem_home_start", sim, st, ln, plain=False)
+    out["mem_net_route"] = time_route(sim, st, ln)
+    timed("mem_requester_fill")
+    return out
+
+
+def time_route(sim, st, ln) -> dict:
+    """Phases 4-5 on (st, ln), their two route calls captured; the call
+    with more live packets timed from the queues it met (restored before
+    each call); then the same queues routing one line-carrying message
+    from every tile to a random tile (`all_tiles`: the companion's
+    phases 4-5 carry few packets)."""
+    import importlib
+
+    import torch
+
+    from graphite_tpu_torch.memory import engine as me
+
+    mnr = importlib.import_module("graphite_tpu_torch.ops.mem_net_route")
+    mctx, en = sim.models.mem, st.models_enabled
+    calls, orig = [], mnr.mem_net_route
+
+    def spy(*a):
+        calls.append(tuple(x.clone() if hasattr(x, "clone") else x
+                           for x in a))
+        return orig(*a)
+
+    mnr.mem_net_route = spy
+    try:
+        me.sharer_step(mctx, st.mem, mctx.cycle_ps(st.core.freq_mhz, en),
+                       en, ln.progress)
+        me.home_acks_and_finish(mctx, st.mem, en, ln.progress)
+    finally:
+        mnr.mem_net_route = orig
+    mp, noc, *packet = max(calls, key=lambda c: int(c[6].sum()))
+    res = time_route_call(mnr, mp, noc, packet)
+    T = packet[0].shape[0]
+    g = torch.Generator(device="cpu").manual_seed(97)
+    every = [x.to(sim.device) for x in (
+        torch.arange(T), torch.randint(0, T, (T,), generator=g),
+        torch.full((T,), mp.rep_bits), packet[3].cpu(),
+        torch.ones(T, dtype=torch.bool))] + [packet[5]]
+    res["all_tiles"] = time_route_call(mnr, mp, noc, every)
+    return res
+
+
+def time_route_call(mnr, mp, noc, packet) -> dict:
+    import torch
+
+    rows = mem_noc_rows(noc)
+    saved = rows.clone()
+
+    def restore():
+        rows.copy_(saved)
+
+    def call():
+        mnr.mem_net_route(mp, noc, *packet)
+
+    def plain():
+        mnr.mem_net_route_plain(mp, noc, *packet)
+
+    def both(f):
+        def g():
+            restore()
+            f()
+        return g
+
+    res = {"ms": graph_ms(both(call)) - graph_ms(restore),
+           "call_ms": host_ms(call, restore, 50, sync=False),
+           "plain_ms": host_ms(plain, restore, 10, sync=True)}
+    restore()
+    plain()
+    touched = int((saved != rows).any(dim=1).sum())
+    restore()
+    T = packet[0].shape[0]
+    nbytes = T * (4 * 8 + 1 + 8) + 1 + touched * 160
+    res.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               bytes=nbytes, ops=0, packets=int(packet[4].sum()),
+               rows_touched=touched)
+    torch.cuda.synchronize()
+    return res
+
+
+def fan_state(sim, homes, targets, *, owner=None, rtype=2, t0=5_000_000,
+              g=None, old=0.0, enabled=True):
+    """A copy of `sim`'s state in which each home of `homes` holds a line
+    (its own, line % T = home) SHARED by `targets[i]` (or MODIFIED by
+    `owner[i]`) and a distinct requester has an `rtype` request for it
+    pending (EX = 2, SH = 1) at t0; the MEMORY net's queues random
+    (`g`), or idle."""
+    import torch
+
+    from graphite_tpu_torch.memory.common import pack_bits
+    from graphite_tpu_torch.ops.mem_home_start import dir_write
+
+    st, ln = sim.state.clone(), sim._lanes.clone()
+    mp, ms = sim.params.mem, st.mem
+    T, dev = mp.n_tiles, sim.device
+    rows = mem_noc_rows(ms.noc)
+    rows.copy_(random_rows(g, rows.shape[0], old, dev) if g is not None
+               else torch.zeros_like(rows))
+    if not enabled:
+        st.models_enabled.fill_(False)
+    tiles = torch.arange(T, device=dev)
+    mask = torch.zeros(T, dtype=torch.bool, device=dev)
+    line = torch.zeros(T, dtype=torch.int64, device=dev)
+    share = torch.zeros((T, T), dtype=torch.bool, device=dev)
+    own = torch.full((T,), -1, dtype=torch.int64, device=dev)
+    for i, h in enumerate(homes):
+        mask[h] = True
+        line[h] = h + T * (100 + i)
+        if owner is None:
+            share[h, torch.as_tensor(targets[i], device=dev)] = True
+        else:
+            share[h, owner[i]] = True
+            own[h] = owner[i]
+        r = (h + 1 + i) % T if owner is None else (owner[i] + 1) % T
+        ms.mail.req_type[r] = rtype
+        ms.mail.req_home[r] = h
+        ms.mail.req_line[r] = int(line[h])
+        ms.mail.req_time[r] = t0
+    dir_write(ms, tiles, line % mp.dir_sets, torch.zeros_like(tiles), mask,
+              tags=line, dstate=torch.full_like(line, 1 if owner is None
+                                                else 2),
+              owner=own, sharers=pack_bits(share, mp.sharer_words),
+              nsharers=share.sum(dim=1).to(torch.int32))
+    return st, ln
+
+
+def mem_net_edge_cases(dev, stats) -> dict:
+    """Hand-made states of the MEMORY net, each route kernel against its
+    plain version, with counts that show each case took its branch:
+    `mem_net_route`'s packets (all tiles to one home, self-sends, M/G/1
+    fallback cells, no packet, models disabled, contention off, 1,024
+    tiles) and `mem_home_start`'s fan-outs (one home to every tile, one
+    target against the unicast, several homes of one ATAC cluster,
+    M/G/1 fallback cells, contention off, models disabled, 1,024
+    tiles)."""
+    import torch
+
+    from graphite_tpu_torch.models.queue_models import COL_ANA, COL_REQS
+
+    g = torch.Generator(device="cpu").manual_seed(2468)
+    out, bad = {}, []
+
+    def delta(before, after):
+        return {"requests": int((after - before)[:, COL_REQS].sum()),
+                "analytical": int((after - before)[:, COL_ANA].sum()),
+                "rows_changed": int((after != before).any(dim=1).sum())}
+
+    def packets(sim, dst, senders=None, enabled=True):
+        mp = sim.params.mem
+        T = mp.n_tiles
+        mask = (torch.ones(T, dtype=torch.bool) if senders is None
+                else senders)
+        bits = torch.where(torch.rand(T, generator=g) < 0.5, mp.rep_bits,
+                           mp.req_bits)
+        t0 = torch.randint(0, 4_000_000, (T,), generator=g)
+        return tuple(x.to(dev) for x in (
+            torch.arange(T), torch.as_tensor(dst), bits, t0, mask,
+            torch.tensor(enabled)))
+
+    def route(label, sim, dst, *, senders=None, old=0.0, enabled=True):
+        noc = sim.state.mem.noc.clone()
+        rows = mem_noc_rows(noc)
+        rows.copy_(random_rows(g, rows.shape[0], old, dev))
+        before = rows.clone()
+        pk = packets(sim, dst, senders, enabled)
+        arr = check_route(sim, noc, stats, *pk)
+        out[label] = {"tiles": sim.params.n_tiles,
+                      "live": int(pk[4].sum()) if enabled else 0,
+                      **delta(before, mem_noc_rows(noc)),
+                      "arrival_eq_t0": bool(torch.equal(arr, pk[3]))}
+
+    def fan(label, sim, homes, targets, **kw):
+        kw.setdefault("g", g)
+        st, ln = fan_state(sim, homes, targets, **kw)
+        before = mem_noc_rows(st.mem.noc).clone()
+        check_mem_kernel("mem_home_start", sim, st, ln, stats)
+        fwd = st.mem.mail.fwd_type != 0
+        out[label] = {"tiles": sim.params.n_tiles, "homes": len(homes),
+                      "copies": int(fwd.sum()),
+                      "max_copies_a_home": int(fwd.sum(dim=0).max()),
+                      **delta(before, mem_noc_rows(st.mem.noc))}
+        return st
+
+    for net in MEM_NETS:
+        sim = net_companion(dev, net)
+        T = sim.params.n_tiles
+        lanes = torch.arange(T)
+        route(f"{net}/route_all_to_one", sim, torch.full((T,), 27))
+        route(f"{net}/route_self_sends", sim, lanes)
+        route(f"{net}/route_mg1_fallback", sim,
+              torch.randint(0, T, (T,), generator=g), old=0.6)
+        route(f"{net}/route_no_packet", sim, torch.full((T,), 3),
+              senders=torch.zeros(T, dtype=torch.bool))
+        route(f"{net}/route_models_disabled", sim,
+              torch.randint(0, T, (T,), generator=g), enabled=False)
+        fan(f"{net}/fan_one_home_to_every_tile", sim, [0], [lanes])
+        # one target on idle queues: the copy arrives as the unicast does
+        st = fan(f"{net}/fan_single_target", sim, [5], None, owner=[9],
+                 rtype=1, t0=7_000_000, g=None)
+        noc0 = sim.state.mem.noc.clone()
+        mem_noc_rows(noc0).zero_()
+        sel = torch.zeros(T, dtype=torch.bool)
+        sel[5] = True
+        t0 = st.mem.txn.time_ps.clone()
+        uni = check_route(sim, noc0, stats, *(x.to(dev) for x in (
+            torch.arange(T), torch.full((T,), 9), torch.full(
+                (T,), sim.params.mem.req_bits), t0.cpu(), sel,
+            torch.tensor(True))))
+        out[f"{net}/fan_single_target"].update(
+            fanout_ps=int(st.mem.mail.fwd_time[9, 5]), unicast_ps=int(uni[5]))
+        homes = [0, 1, 8, 9]          # ATAC cluster 0 of the 8 x 8 mesh
+        far = [[20, 30, 45, 63, 2], [36, 50, 7], [60, 61, 10, 33],
+               [40, 41, 42, 43, 9]]
+        fan(f"{net}/fan_homes_of_one_cluster", sim, homes, far)
+        fan(f"{net}/fan_mg1_fallback", sim, list(range(0, 64, 4)),
+            [[(h + k * 5) % T for k in range(1, 6)]
+             for h in range(0, 64, 4)], old=0.7)
+        fan(f"{net}/fan_models_disabled", sim, [0], [lanes], enabled=False)
+        off = net_companion(dev, net, f"[network/{net}/queue_model]\n"
+                            "enabled = false\n")
+        route(f"{net}/route_contention_off", off,
+              torch.randint(0, T, (T,), generator=g))
+        fan(f"{net}/fan_contention_off", off, [0], [lanes])
+        big = memstress(BIG_TILES, dev, n_accesses=6,
+                        extra=NET_EXTRA.format(net=net))
+        route(f"{net}/route_tiles_1024", big,
+              torch.randint(0, BIG_TILES, (BIG_TILES,), generator=g))
+        fan(f"{net}/fan_one_home_to_every_tile_1024", big, [7],
+            [torch.arange(BIG_TILES)])
+        # every kernel on a whole iteration of 1,024 tiles
+        out[f"{net}/iterations_1024"] = {"iterations": run_checked(
+            big, 40, stats)}
+        del sim, off, big
+        torch.cuda.empty_cache()
+    for label, c in out.items():
+        kind = label.split("/")[1]
+        quiet = kind in ("route_no_packet", "route_models_disabled",
+                         "fan_models_disabled", "route_contention_off",
+                         "fan_contention_off") or (
+            kind == "route_self_sends" and label.startswith("atac"))
+        if "requests" in c and quiet and (c["rows_changed"]
+                                          or c["requests"]):
+            bad.append(f"{label}: the queues changed")
+        if "requests" in c and not quiet and c["requests"] <= 0:
+            bad.append(f"{label}: no queue took a request")
+        if "mg1" in kind and c["analytical"] <= 0:
+            bad.append(f"{label}: no M/G/1 fallback")
+        if kind.startswith("fan_one_home") and (
+                c["max_copies_a_home"] != c["tiles"]):
+            bad.append(f"{label}: {c['max_copies_a_home']} copies, not "
+                       "one a tile")
+        if kind == "fan_single_target" and (
+                c["copies"] != 1 or c["fanout_ps"] != c["unicast_ps"]):
+            bad.append(f"{label}: the copy != the unicast")
+        if kind == "fan_homes_of_one_cluster" and c["copies"] != 17:
+            bad.append(f"{label}: {c['copies']} copies")
+        if kind == "route_models_disabled" and not c["arrival_eq_t0"]:
+            bad.append(f"{label}: arrivals != send times")
+    hub = out["atac/fan_homes_of_one_cluster"]
+    if hub["requests"] != 4 or hub["rows_changed"] != 1:
+        bad.append("atac/fan_homes_of_one_cluster: not one send hub "
+                   "charged by four homes")
+    if bad:
+        raise AssertionError(f"MEMORY-net edge cases missed their path: "
+                             f"{bad}")
+    return out
+
+
+NET_E2E_CASES = ("mutex_rmw16", "disjoint16", "companion64")
+
+
+def net_e2e_run(net: str, name: str, where) -> tuple:
+    """One case of `phase_memory_net_end_to_end` on `where`, run to
+    completion: (SimResults, iterations, wall s, the line census of its
+    first 64 requested lines, the MEMORY net's queue rows as numpy)."""
+    extra = NET_EXTRA.format(net=net)
+    if name == "mutex_rmw16":
+        sim = mem_sim(16, mutex_rmw_batch(16, 3), where, extra=extra)
+    elif name == "disjoint16":
+        sim = mem_sim(16, disjoint_stream_batch(16), where, extra=extra)
+    else:
+        sim = net_companion(where, net)
+    t0 = time.perf_counter()
+    r = sim.run()
+    lines = sorted({int(x) for x in sim.state.mem.req.line.cpu()})
+    return (r, sim.last_n_iterations, time.perf_counter() - t0,
+            sim.line_census(lines[:64]),
+            mem_noc_rows(sim.state.mem.noc).cpu().numpy())
+
+
+def one_thread() -> None:
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def start_net_e2e_cpu(pool) -> dict:
+    """The CPU sides of `phase_memory_net_end_to_end`, submitted to `pool`
+    (one worker process on one thread) so that they run while the card
+    checks the MEMORY-net kernels."""
+    return {(net, name): pool.submit(net_e2e_run, net, name, "cpu")
+            for net in MEM_NETS for name in NET_E2E_CASES}
+
+
+def phase_memory_net_end_to_end(dev, card: str, cpu_runs: dict) -> None:
+    """Card against CPU under each contention MEMORY net: the 16-tile
+    mutex-serialized and line-disjoint traces of tests/test_memory_net.py
+    and the 64-tile companion to completion; every SimResults field,
+    n_quanta, last_n_iterations, the line census and `MemState.noc`
+    equal.  `cpu_runs` holds the futures of the CPU sides
+    (`start_net_e2e_cpu`)."""
+    import numpy as np
+
+    for net in MEM_NETS:
+        for name in NET_E2E_CASES:
+            rc, ic, wc, cc, qc = net_e2e_run(net, name, dev)
+            rp, ip, wp, cp, qp = cpu_runs[net, name].result()
+            bad = [f for f in RESULT_FIELDS
+                   if not result_field_equal(getattr(rc, f), getattr(rp, f))]
+            if ic != ip:
+                bad.append("last_n_iterations")
+            if cc != cp:
+                bad.append("line_census")
+            if not np.array_equal(qc, qp):
+                bad.append("mem.noc")
+            emit({"phase": "memory_net_end_to_end", "net": net,
+                  "case": name, "card": card, "equal": not bad, "bad": bad,
+                  "iterations": ic, "n_quanta": rc.n_quanta, "card_s": wc,
+                  "cpu_s": wp, "total_instructions": rc.total_instructions,
+                  "completion_time_ps": rc.completion_time_ps,
+                  "noc_requests": int(qc[:, 6].sum())})
+            if bad:
+                raise AssertionError(f"card != cpu on {name} ({net}): {bad}")
+
+
+def phase_net_companion(dev, net) -> tuple:
+    """The companion under `net` at full width: warmup, then MEM_RUNS
+    timed runs from one initial state; each run launches each of its
+    eight kernels once an iteration, replays the two phase graphs once an
+    iteration (the host's only other launches) and `mem_net_route` twice
+    an iteration inside them, plus twice for each state captured (the
+    count the graphs keep; the profile of the run checks the device's).
+    Returns the numbers, the simulator and the initial state."""
+    import torch
+
+    from graphite_tpu_torch import ops
+
+    sim = net_companion(dev, net)
+    graphs = sim.models.mem.phase_graphs
+    init = sim.state._map(lambda t: t.to("cpu", copy=True))
+    t0 = time.perf_counter()
+    sim.warmup()
+    warm_s = time.perf_counter() - t0
+    walls = []
+    path = KERNEL_ORDER + MEM_KERNELS
+    for _ in range(MEM_RUNS):
+        sim.state = init._map(lambda t: t.to(dev, copy=True))
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        replays, captures = graphs.replays, graphs.captures
+        t0 = time.perf_counter()
+        r = sim.run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        iters = sim.last_n_iterations
+        replays = graphs.replays - replays
+        captures = graphs.captures - captures
+        off = {k: counts[k] for k in path if counts[k] != iters}
+        if replays != 2 * iters:
+            off["graph replays"] = replays
+        if counts["mem_net_route"] != 2 * (iters + captures):
+            off["mem_net_route"] = counts["mem_net_route"]
+        other = {k: n for k, n in counts.items()
+                 if n and k not in path + ("mem_net_route",)}
+        if off or other:
+            raise AssertionError(f"{net} companion: launches {off} "
+                                 f"{other} in {iters} iterations")
+    if not bool(sim.state.done.all()):
+        raise AssertionError(f"{net} companion: not every tile is done")
+    med = sorted(walls)[len(walls) // 2]
+    return {
+        "memory_net": net, "tiles": 64, "points_per_tile": COMPANION_POINTS,
+        "runs": MEM_RUNS, "wall_s": walls, "wall_s_median": med,
+        "wall_s_spread": max(walls) - min(walls), "warmup_s": warm_s,
+        "sim_instr_per_s_median": r.total_instructions / med,
+        "us_per_iteration_median": med / iters * 1e6,
+        "total_instructions": r.total_instructions,
+        "completion_time_ps": r.completion_time_ps, "iterations": iters,
+        "n_quanta": r.n_quanta,
+        "l2_misses": int(r.mem_counters["l2_misses"].sum()),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "host_launches_per_iteration": {
+            "kernels": len(path), "graphs": replays // iters},
+        "graph_captures": captures, "launches": counts,
+    }, sim, init
+
+
+def phase_hbh_north_star(dev) -> dict:
+    """The north star's rung on the contention NoCs: the 1024-tile FFT
+    with its loads on MSI full_map (auto directory, lax_barrier) with
+    emesh_hop_by_hop as the USER and the MEMORY net (bench.py's 1024-tile
+    coherence ladder's first rung), once, to completion."""
+    import torch
+
+    from graphite_tpu_torch import ops
+    from graphite_tpu_torch.trace.benchmarks import fft_trace
+
+    t0 = time.perf_counter()
+    batch = fft_trace(1024, points_per_tile=2048, use_memory=True)
+    sim = mem_sim(1024, batch, dev, network="emesh_hop_by_hop",
+                  clock_scheme="lax_barrier")
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not bool(sim.state.done.all()):
+        raise AssertionError("hop-by-hop north star: not every tile is "
+                             "done")
+    counts = ops.launch_counts()
+    missing = [k for k in MEM_KERNELS[:3] + ("noc_route", "mem_net_route")
+               if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"hop-by-hop north star never launched "
+                             f"{missing}")
+    return {"tiles": 1024, "points_per_tile": 2048, "network":
+            "emesh_hop_by_hop (USER and MEMORY)", "setup_s": setup_s,
+            "wall_s": wall, "iterations": sim.last_n_iterations,
+            "n_quanta": r.n_quanta,
+            "total_instructions": r.total_instructions,
+            "completion_time_ps": r.completion_time_ps,
+            "sim_instr_per_s": r.total_instructions / wall,
+            "us_per_iteration": wall / sim.last_n_iterations * 1e6,
+            "l2_misses": int(r.mem_counters["l2_misses"].sum()),
+            "mem_noc_requests": int(mem_noc_rows(sim.state.mem.noc)[:, 6]
+                                    .sum()),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "launches": counts}
+
+
+def net_kernel_us(t: dict) -> dict:
+    """A `time_net_kernels` entry in µs."""
+    out = {"us": t["ms"] * 1e3, "call_us": t["call_ms"] * 1e3,
+           "plain_us": t["plain_ms"] * 1e3, "bound_us": t["bound_ms"] * 1e3,
+           "bytes": t["bytes"]}
+    if "packets" in t:
+        out["packets"] = t["packets"]
+    if "all_tiles" in t:
+        out["all_tiles"] = net_kernel_us(t["all_tiles"])
+    return out
+
+
 def is_kernel(key: str, name: str) -> bool:
     """Whether a profiler key names `name`'s kernel (a template
     instantiation's key starts with its return type)."""
@@ -2109,15 +2858,10 @@ def main() -> int:
     for state, at in states.items():
         # the inner block of the run that holds the timing state
         start = at // sim.params.inner_block * sim.params.inner_block
-        prof = phase_profile(sim, init, start,
-                             full["wall_s_median"] / full["iterations"])
+        prof = checked_profile(sim, init, start, full["wall_s_median"]
+                               / full["iterations"], KERNEL_ORDER, 0,
+                               f"headline ({state})")
         emit({"phase": "profile", "state": state, "card": smi, **prof})
-        for name in KERNEL_ORDER:
-            one = {k: v["launches"] for k, v in prof["kernels"].items()
-                   if is_kernel(k, name)}
-            if list(one.values()) != [prof["iterations"]]:
-                raise AssertionError(f"{name}: device launches {one} in "
-                                     f"{prof['iterations']} calls")
 
     # the memory slice: the 64-tile iocoom + MSI FFT companion
     minfo = phase_memory_kernels(dev, stats)
@@ -2137,19 +2881,12 @@ def main() -> int:
     emit({"phase": "companion", "card": smi, **comp})
     at = minfo["miss_heavy_at"]
     start = at // csim.params.inner_block * csim.params.inner_block
-    prof = phase_profile(csim, cinit, start,
-                         comp["wall_s_median"] / comp["iterations"])
+    # the device trace has dropped the window's first launch of some
+    # kernels (the first two of the companion's iteration)
+    prof = checked_profile(csim, cinit, start, comp["wall_s_median"]
+                           / comp["iterations"], KERNEL_ORDER + MEM_KERNELS,
+                           1, "companion")
     emit({"phase": "companion_profile", "card": smi, **prof})
-    # one device launch a call; the device trace drops the window's first
-    # launch of some kernels (observed for the first two of the
-    # companion's iteration, never in the headline's windows)
-    for name in KERNEL_ORDER + MEM_KERNELS:
-        one = [v["launches"] for k, v in prof["kernels"].items()
-               if is_kernel(k, name)]
-        n = prof["iterations"]
-        if len(one) != 1 or not n - 1 <= one[0] <= n:
-            raise AssertionError(f"{name}: device launches {one} in "
-                                 f"{n} companion calls")
     del csim, cinit
     torch.cuda.empty_cache()
 
@@ -2175,31 +2912,68 @@ def main() -> int:
         # the first inner block wholly inside the first all-to-all
         ib = rsim.params.inner_block
         start = (ninfo[name]["all_to_all_at"] // ib + 1) * ib
-        prof = phase_profile(rsim, rinit, start,
-                             rinfo["wall_s_median"] / rinfo["iterations"])
+        # the device trace can drop the window's first two iterations
+        # (observed: 62 of 64 for every kernel)
+        prof = checked_profile(rsim, rinit, start, rinfo["wall_s_median"]
+                               / rinfo["iterations"], KERNEL_ORDER + (name,),
+                               2, f"RADIX ({NOC_NETS[name]})")
         emit({"phase": "radix_profile", "network": NOC_NETS[name],
               "card": smi, **prof})
-        # one device launch a call; the device trace can drop the window's
-        # first two iterations (observed: 62 of 64 for every kernel)
-        n = prof["iterations"]
-        for k in KERNEL_ORDER + (name,):
-            one = [v["launches"] for key, v in prof["kernels"].items()
-                   if is_kernel(key, k)]
-            if len(one) != 1 or not n - 2 <= one[0] <= n:
-                raise AssertionError(f"{k}: device launches {one} in {n} "
-                                     f"RADIX ({NOC_NETS[name]}) calls")
         radix[name] = rinfo
         del rsim, rinit
         torch.cuda.empty_cache()
 
+    # the contention nets as the MEMORY net: the MSI engine's routes; the
+    # CPU sides of its card-vs-CPU cases run meanwhile in one process
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=one_thread)
+    try:
+        cpu_runs = start_net_e2e_cpu(pool)
+        nk = phase_memory_net_kernels(dev, stats)
+        for net in MEM_NETS:
+            emit({"phase": "memory_net_kernel", "memory_net": net,
+                  "card": smi,
+                  **{k: v for k, v in nk[net].items() if k != "timings"},
+                  **{name: net_kernel_us(t)
+                     for name, t in nk[net]["timings"].items()}})
+        emit({"phase": "memory_net_edge_cases", "card": smi,
+              "cases": mem_net_edge_cases(dev, stats)})
+        phase_memory_net_end_to_end(dev, smi, cpu_runs)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    ncomp = {}
+    for net in MEM_NETS:
+        ncomp[net], nsim, ninit = phase_net_companion(dev, net)
+        emit({"phase": "memory_net_companion", "card": smi, **ncomp[net]})
+        ib = nsim.params.inner_block
+        start = nk[net]["miss_heavy_at"] // ib * ib
+        # the graph of phases 4-5 launches `mem_net_route` twice a call
+        prof = checked_profile(
+            nsim, ninit, start, ncomp[net]["wall_s_median"]
+            / ncomp[net]["iterations"],
+            KERNEL_ORDER + MEM_KERNELS + ("mem_net_route",), 1,
+            f"{net} companion", per_call={"mem_net_route": 2})
+        emit({"phase": "memory_net_companion_profile", "memory_net": net,
+              "card": smi, **prof})
+        del nsim, ninit
+        torch.cuda.empty_cache()
+
     emit({"phase": "north_star", "card": smi, **phase_north_star(dev)})
+    torch.cuda.empty_cache()
+    emit({"phase": "north_star_hop_by_hop", "card": smi,
+          **phase_hbh_north_star(dev)})
 
     rows = []
     send = kinfo["timings"]["send_phase"]
-    for name in KERNEL_ORDER + MEM_KERNELS + NOC_KERNELS:
+    for name in KERNEL_ORDER + MEM_KERNELS + NOC_KERNELS + (
+            "mem_net_route",):
         mem = name in MEM_KERNELS
         if name in NOC_KERNELS:
             tm, path = ninfo[name]["timings"][name], radix[name]
+        elif name == "mem_net_route":
+            tm = nk[MEM_NETS[0]]["timings"][name]
+            path = ncomp[MEM_NETS[0]]
         else:
             tm = minfo["timings"][name] if mem else send[name]
             path = comp if mem else full
@@ -2223,5 +2997,93 @@ def main() -> int:
     return 0
 
 
+AB_WORKLOADS = ("companion", "north_star")
+
+
+def ab_in(workload: str, tree: str) -> int:
+    """One process of `ab`: `workload` with the package of `tree` — the
+    companion warmed up, then MEM_RUNS timed runs from one initial state;
+    or the north star (its kernels built) timed once."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    dev = torch.device("cuda", 0)
+    if workload == "companion":
+        sim = companion(dev)
+        init = sim.state._map(lambda t: t.to("cpu", copy=True))
+        sim.warmup()
+        runs = MEM_RUNS
+    else:
+        from graphite_tpu_torch.ops.build import build_all
+        from graphite_tpu_torch.trace.benchmarks import fft_trace
+
+        build_all()
+        sim = mem_sim(1024, fft_trace(1024, points_per_tile=2048,
+                                      use_memory=True), dev,
+                      clock_scheme="lax_barrier")
+        runs = 1
+    walls = []
+    for _ in range(runs):
+        if workload == "companion":
+            sim.state = init._map(lambda t: t.to(dev, copy=True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = sim.run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    emit({"walls": walls, "iterations": sim.last_n_iterations,
+          "total_instructions": r.total_instructions})
+    return 0
+
+
+def ab(workload: str, trees) -> int:
+    """`python3 chip_smoke.py --ab companion|north_star TREE [TREE ...]`:
+    the workload timed with the `graphite_tpu_torch` package of each TREE
+    (a directory that holds one, e.g. a `git archive` unpacked into the
+    git-ignored `_archive/`), each in a process of its own, the trees in
+    order and then in reverse (A B B A).  A JSON line a process, one a
+    tree (its walls, their median and spread), then the card's name and
+    power limit."""
+    import torch
+
+    if workload not in AB_WORKLOADS or not trees:
+        print(f"chip_smoke: --ab {'|'.join(AB_WORKLOADS)} TREE...",
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    walls = {t: [] for t in trees}
+    first = {}
+    for tree in trees + trees[::-1]:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--ab-in", workload, tree],
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return 1
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        key = (res["iterations"], res["total_instructions"])
+        if first.setdefault(tree, key) != key:
+            raise AssertionError(f"{tree}: the {workload} changed its "
+                                 "result")
+        walls[tree] += res["walls"]
+        emit({"tree": tree, "workload": workload, **res,
+              "median": statistics.median(res["walls"])})
+    for tree, w in walls.items():
+        med = statistics.median(w)
+        emit({"tree": tree, "workload": workload, "runs": len(w),
+              "median": med, "min": min(w), "max": max(w),
+              "spread": max(w) - min(w),
+              "us_per_iteration_median": med / first[tree][0] * 1e6})
+    print(smi_line(), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab"]:
+        sys.exit(ab(sys.argv[2] if len(sys.argv) > 2 else "",
+                    sys.argv[3:]))
+    if sys.argv[1:2] == ["--ab-in"]:
+        sys.exit(ab_in(sys.argv[2], sys.argv[3]))
     sys.exit(main())

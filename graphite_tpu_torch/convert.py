@@ -10,9 +10,9 @@ JAX:
  - `state_from_arrays(tree, device)` builds the port's `SimState` from a
    `jax.device_get` of a JAX `SimState` — any object or mapping with the
    same field names and numpy leaves — memory (`MemState`, the private-
-   L2 engine's), iocoom (`IocoomState`) and the USER net's contention
-   queues (`noc_user`: hop-by-hop `NocState` or ATAC `AtacState`)
-   included;
+   L2 engine's, with the MEMORY net's queues `noc`), iocoom
+   (`IocoomState`) and the USER net's contention queues (`noc_user`:
+   hop-by-hop `NocState` or ATAC `AtacState`) included;
  - `state_to_arrays(state)` is the inverse: a nested dict of numpy arrays
    with the JAX leaves' names, dtypes and shapes.
 
@@ -68,6 +68,7 @@ _SUBTREES = {
     ("MemState", "counters"): MemCounters,
     ("NocState", "queues"): QueueArrays,
     ("AtacState", "hub_queues"): QueueArrays,
+    ("MemState", "noc"): "noc",
 }
 
 
@@ -106,31 +107,32 @@ def _node(cls, tree, device, optional=()):
                 continue
             raise KeyError(f"{cls.__name__}.{f.name} missing")
         sub = _SUBTREES.get((cls.__name__, f.name))
-        kwargs[f.name] = (_node(sub, v, device) if sub is not None
-                          else _leaf(v, device, f.name))
+        if sub == "noc":
+            kwargs[f.name] = noc_state_from_arrays(v, device)
+        else:
+            kwargs[f.name] = (_node(sub, v, device) if sub is not None
+                              else _leaf(v, device, f.name))
     return cls(**kwargs)
 
 
 def mem_state_from_arrays(tree, device):
     """The port's MemState from a JAX MemState's numpy leaves (the private-
-    L2 engine's).  The JAX-only leaves (`live`, `phase_skips`, the
-    hop-by-hop `noc`) are dropped; staged directory writes must have been
-    flushed (the port writes the directory in place)."""
+    L2 engine's), the MEMORY net's contention queues (`noc`) included.
+    The JAX-only leaves (`live`, `phase_skips`) are dropped; staged
+    directory writes must have been flushed (the port writes the
+    directory in place)."""
     d = _get(tree, "directory")
     skey = _get(d, "skey")
     if skey is not None and bool(np.any(np.asarray(skey) >= 0)):
         raise ValueError("the JAX state holds staged directory writes: "
                          "flush them (dir_stage_flush) before converting")
-    if _get(tree, "noc") is not None:
-        raise NotImplementedError(
-            "MemState.noc belongs to the hop-by-hop memory net, not ported "
-            "yet (ROADMAP.md queue 1, item 9)")
-    return _node(MemState, tree, device, optional=("l2_util", "mt"))
+    return _node(MemState, tree, device, optional=("l2_util", "mt", "noc"))
 
 
 def noc_state_from_arrays(tree, device):
-    """The USER net's contention queues: a hop-by-hop `NocState` (leaf
-    `queues`) or an ATAC `AtacState` (leaf `hub_queues`)."""
+    """A contention net's queues (the USER net's `noc_user`, the MEMORY
+    net's `MemState.noc`): a hop-by-hop `NocState` (leaf `queues`) or an
+    ATAC `AtacState` (leaf `hub_queues`)."""
     if _get(tree, "queues") is not None:
         return _node(NocState, tree, device)
     return _node(AtacState, tree, device)

@@ -31,16 +31,16 @@
 // so results do not depend on their order), block barriers order the
 // phases, and the rows are written back at the end.  The scratch row
 // takes the masked lanes' terms (max with 0, with -2^62 and with 0) once,
-// from one thread, when any lane is masked.
+// from one thread, when any lane is masked.  The route is
+// `atac_route_lane` of net_route.cuh, which the MEMORY net shares.
 //
 // Bound: bytes.  Five inputs and one output a lane plus the hub rows
 // read and written once: ~30 KB at T = 256, ~10 ns at 3.35 TB/s; the
 // launch, the staging and five block barriers set the time.
 #include "common.cuh"
-#include "queue_common.cuh"
+#include "net_route.cuh"
 
 #define MAX_LANES 1024
-#define WIN_FLOOR (-(1LL << 62))
 
 // Argument block = graphite_tpu_torch/ops/atac_route.py `_pack`.
 struct AtacArgs {
@@ -57,86 +57,19 @@ struct AtacArgs {
         history, analytical, span, contention;
 };
 
-struct Lane {
-    bool valid;     // a thread with a lane (t < T)
-    bool mask;      // this call's mask (the lane rides the ONet, live)
-    int qid;        // its hub row (the scratch row when masked)
-    int64_t pkt;    // arrival at the hub, network cycles
-    int64_t proc;   // processing (serialization) cycles, >= 1
-};
-
-// shared-memory 64-bit integer atomics on long long words (int64_t is
-// `long`, another type: the staged rows are declared long long)
-__device__ __forceinline__ void atomic_add_ll(long long* p, long long v) {
-    atomicAdd((unsigned long long*)p, (unsigned long long)v);
-}
-
-__device__ __forceinline__ void atomic_max_ll(long long* p, long long v) {
-    atomicMax(p, v);
-}
-
-// `scatter_queue_delay` over the staged rows; every thread of the block
-// calls it (the barriers).  Returns the lane's delay (0 when masked).
-__device__ int64_t scatter_delay(const AtacArgs& a, long long* rows,
-                                 const Lane& ln) {
-    long long* r = rows + ln.qid * N_COLS;
-    int64_t delay = 0;
-    bool too_old = false;
-    if (ln.valid) {
-        const int64_t qt = r[COL_QT];
-        if (a.history && a.analytical) too_old = ln.pkt + ln.proc < r[COL_WS];
-        delay = too_old ? mg1_wait(r[COL_N_ARR], r[COL_SUM_ST],
-                                   r[COL_SUM_ST2], r[COL_NEWEST])
-                        : (qt - ln.pkt > 0 ? qt - ln.pkt : 0);
-    }
-    const bool in_win = ln.mask && !too_old;
-    // every lane's read of the pre-call row is done; the masked lanes'
-    // terms all land on the scratch row
-    const int any_masked = __syncthreads_or(ln.valid && !ln.mask);
-    if (ln.mask) atomic_max_ll(r + COL_QT, in_win ? ln.pkt : 0);
-    __syncthreads();
-    if (in_win) atomic_add_ll(r + COL_QT, ln.proc);
-    __syncthreads();
-    if (ln.mask) {
-        const int64_t qt_new = r[COL_QT];
-        atomic_max_ll(r + COL_WS, in_win ? qt_new - a.span : WIN_FLOOR);
-        atomic_max_ll(r + COL_NEWEST, ln.pkt + delay + ln.proc);
-        atomic_add_ll(r + COL_SUM_ST, ln.proc);
-        atomic_add_ll(r + COL_SUM_ST2, ln.proc * ln.proc);
-        atomic_add_ll(r + COL_N_ARR, 1);
-        atomic_add_ll(r + COL_REQS, 1);
-        atomic_add_ll(r + COL_UTIL, ln.proc);
-        atomic_add_ll(r + COL_DELAY, delay);
-        if (too_old) atomic_add_ll(r + COL_ANA, 1);
-    }
-    if (any_masked && threadIdx.x == 0) {
-        long long* s = rows + 2 * a.C * N_COLS;
-        if (s[COL_QT] < 0) s[COL_QT] = 0;
-        if (s[COL_WS] < WIN_FLOOR) s[COL_WS] = WIN_FLOOR;
-        if (s[COL_NEWEST] < 0) s[COL_NEWEST] = 0;
-    }
-    __syncthreads();
-    return ln.mask ? delay : 0;
-}
-
-__device__ __forceinline__ int enet_hops(int a, int b, int w) {
-    return abs(a % w - b % w) + abs(a / w - b / w);
-}
-
 __global__ void __launch_bounds__(MAX_LANES) atac_route_kernel(
         const AtacArgs a) {
     extern __shared__ long long rows[];
-    const int T = (int)a.T, w = (int)a.w, C = (int)a.C;
-    const int n_words = (2 * C + 1) * N_COLS;
-    if (a.contention) {
-        for (int k = threadIdx.x; k < n_words; k += blockDim.x)
-            rows[k] = a.q[k];
-    }
+    const NetConsts n{a.q, nullptr, a.freq_mhz, a.flit_bits, a.history,
+                      a.analytical, a.span, a.contention, a.w, 0, 0, 0,
+                      a.C, a.cw, a.ch, a.enet_hop, a.send_hub, a.recv_hub,
+                      a.from_hub_ps, a.optical_ps, a.distance_based,
+                      a.threshold};
+    const int T = (int)a.T;
     const int t = threadIdx.x;
     const bool valid = t < T;
-    const bool en = *a.enabled;
-    bool mask = false, use_onet = false;
-    int d = 0, csrc = 0, cdst = 0;
+    bool mask = false;
+    int d = 0;
     int64_t clk = 0, flits = 0;
     if (valid) {
         mask = a.active[t] && a.op[t] == OP_SEND;
@@ -146,47 +79,12 @@ __global__ void __launch_bounds__(MAX_LANES) atac_route_kernel(
         const int32_t bits = wrap_mul(wrap_add(64, a.aux1[t]), 8);
         flits = floor_div_i32(wrap_add(bits, (int32_t)a.flit_bits - 1),
                               (int32_t)a.flit_bits);
-        const int per_row = w / (int)a.cw;
-        csrc = (t / w) / (int)a.ch * per_row + (t % w) / (int)a.cw;
-        cdst = (d / w) / (int)a.ch * per_row + (d % w) / (int)a.cw;
-        bool enet = csrc == cdst;
-        if (a.distance_based) enet = enet || enet_hops(t, d, w) <= a.threshold;
-        use_onet = mask && !enet;
     }
-    const bool onet_live = use_onet && en;
-    const int per_row = w / (int)a.cw;
-    const int hub = (csrc / per_row) * (int)a.ch * w + (csrc % per_row) *
-                    (int)a.cw;
-    const int64_t sendhub_arrive =
-        clk + cyc_to_ps((int64_t)enet_hops(t, hub, w) * a.enet_hop,
-                        a.freq_mhz);
-    const int64_t proc = flits > 1 ? flits : 1;
-    int64_t delay1 = 0, delay2 = 0;
-    if (a.contention) {
-        __syncthreads();                       // the rows are staged
-        const Lane l1{valid, onet_live, onet_live ? csrc : 2 * C,
-                      ps_to_cyc(sendhub_arrive, a.freq_mhz), proc};
-        delay1 = scatter_delay(a, rows, l1);
-    }
-    const int64_t recvhub_arrive =
-        sendhub_arrive + cyc_to_ps(delay1 + a.send_hub, a.freq_mhz) +
-        (en ? a.optical_ps : 0);
-    if (a.contention) {
-        const Lane l2{valid, onet_live, onet_live ? C + cdst : 2 * C,
-                      ps_to_cyc(recvhub_arrive, a.freq_mhz), proc};
-        delay2 = scatter_delay(a, rows, l2);
-        for (int k = threadIdx.x; k < n_words; k += blockDim.x)
-            a.q[k] = rows[k];
-    }
-    if (!valid) return;
-    const int64_t recvhub_done =
-        recvhub_arrive + cyc_to_ps(delay2 + a.recv_hub, a.freq_mhz);
-    const int64_t onet_ps = (recvhub_done - clk) + a.from_hub_ps;
-    const int64_t enet_ps =
-        cyc_to_ps((int64_t)enet_hops(t, d, w) * a.enet_hop, a.freq_mhz);
-    const int64_t ser_ps = t == d ? 0 : cyc_to_ps(flits, a.freq_mhz);
-    const int64_t total = en ? (use_onet ? onet_ps : enet_ps) + ser_ps : 0;
-    a.route_lat[t] = mask ? total : 0;
+    if (a.contention) atac_stage(n, rows);
+    const int64_t lat = atac_route_lane(n, rows, valid, valid ? t : 0, d,
+                                        flits, clk, mask, *a.enabled);
+    if (a.contention) atac_commit(n, rows);
+    if (valid) a.route_lat[t] = lat;
 }
 
 extern "C" int gt_atac_route(const AtacArgs* args, cudaStream_t stream) {

@@ -5,12 +5,13 @@
 // cache_array.py (the packed meta word line << 16 | state << 8 | lru, the
 // row lookup / touch / set-state / invalidate / victim / insert, :61-260)
 // and engine.py (the sharer-word bit ops and packed directory fields,
-// :92-175; the zero-load MEMORY network, :227-249; the miss-type and
+// :92-175; the MEMORY network, :227-277; the miss-type and
 // line-utilization words, :386-474; the slot decomposition, :602-628).
 // Plain versions: graphite_tpu_torch/memory/{cache_array,common}.py.
 #pragma once
 
 #include "common.cuh"
+#include "net_route.cuh"
 
 // the plain values every memory kernel's argument block ends with
 // (graphite_tpu_torch/ops/mem_requester.py `engine_values`)
@@ -105,6 +106,34 @@ __device__ __forceinline__ int64_t net_lat_ps(const MemConsts& c, int64_t src,
     const int64_t hops = (dx < 0 ? -dx : dx) + (dy < 0 ? -dy : dy);
     const int64_t flits = (bits + c.flit_bits - 1) / c.flit_bits;
     return cyc_ps(hops * c.hop_cycles + (src == dst ? 0 : flits), c.net_freq);
+}
+
+// One coherence message a thread through the MEMORY net (`mem_net_send`,
+// graphite_tpu/memory/engine.py:251-277): under NET_ZL t0 plus the
+// zero-load latency (no barrier); under NET_HBH / NET_ATAC the contention
+// route of net_route.cuh, which every thread of the one-CTA kernel must
+// reach (`smem`: the ATAC hub rows' shared memory).  A packet that is
+// masked out (or any packet while models are off) arrives at t0 and
+// leaves the queues as they were.
+template <int NET>
+__device__ __forceinline__ int64_t mem_send(const MemConsts& c,
+                                            const NetConsts& n,
+                                            long long* smem, bool valid,
+                                            int src, int dst, int64_t bits,
+                                            int64_t t0, bool mask, bool en) {
+    if constexpr (NET == NET_HBH) {
+        return hbh_send(n, src, dst, bits, t0, valid && mask && en);
+    } else if constexpr (NET == NET_ATAC) {
+        return atac_send(n, smem, valid, src, dst, bits, t0, mask, en);
+    } else {
+        return t0 + net_lat_ps(c, src, dst, bits, en);
+    }
+}
+
+// the dynamic shared memory of a kernel instantiation (the ATAC hub rows)
+__host__ __forceinline__ size_t net_smem(int net, const NetConsts& n) {
+    return net == NET_ATAC && n.contention
+        ? (size_t)(2 * n.C + 1) * N_COLS * sizeof(long long) : 0;
 }
 
 // --- packed cache meta words -------------------------------------------------

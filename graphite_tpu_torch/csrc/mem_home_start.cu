@@ -28,7 +28,8 @@
 // set bits of the pending words with __ffs.
 #include "mem_common.cuh"
 
-#define HOMES 128
+#define HOMES 128          // homes a CTA, under the zero-load nets
+#define MAX_HOMES 1024     // the one CTA of a contention net
 #define FAR (1ULL << 62)
 #define TAG_MASK ((1LL << 34) - 1)
 #define ID_MASK ((1LL << 13) - 1)
@@ -72,6 +73,7 @@ struct HomeArgs {
     int64_t* dram_total_lat;
     int64_t unused;
     MemConsts c;
+    NetConsts n;
 };
 
 __device__ __forceinline__ int32_t e_tag(int64_t w) {
@@ -93,172 +95,325 @@ __device__ __forceinline__ int64_t e_pack(int64_t tag, int st, int64_t owner,
            ((nsh & ID_MASK) << NSH_SHIFT);
 }
 
-__global__ void __launch_bounds__(HOMES)
+// A contention net's fan-out: the INV / FLUSH / WB copies into the home's
+// FWD column, one a set bit of its pending words (by tile id), each
+// copy's arrival from its rank among the targets (`mem_net_fanout`,
+// graphite_tpu/memory/engine.py:280-374; the zero-load nets' copies go
+// out in the kernel body).  emesh_hop_by_hop: one charge of k * flits
+// on the home's INJECT row (its own row, so no two homes collide), then
+// rank * flits and the zero-load path.  ATAC: one charge of k_onet * flits on the cluster's
+// send hub (homes of one cluster collide there: the scatter form), its
+// delay on the ONet copies only, rank * flits and the ATAC zero-load
+// path.  Every thread of the block calls it (the queue commit).
+template <int NET>
+__device__ __forceinline__ void fan_out(const HomeArgs& a, long long* rows,
+                                        bool valid, int h, bool fan,
+                                        int fwd_msg, int32_t eff_line,
+                                        int64_t eff_time, bool en) {
+    const MemConsts& c = a.c;
+    const NetConsts& n = a.n;
+    const int T = (int)c.T, SW = (int)c.SW;
+    const int32_t* pend = a.pending + (size_t)(valid ? h : 0) * SW;
+    const int64_t flits_raw =
+        floor_div_i64(c.req_bits + n.flit_bits - 1, n.flit_bits);
+    const int64_t flits = flits_raw > 1 ? flits_raw : 1;
+    int64_t delay = 0;
+    if constexpr (NET == NET_HBH) {
+        int k = 0;
+        if (fan)
+            for (int w = 0; w < SW; ++w)
+                for (uint32_t b = (uint32_t)pend[w]; b; b &= b - 1)
+                    k += w * 32 + __ffs(b) - 1 < T;
+        if (n.contention) {
+            const bool go = fan && en;
+            delay = unique_charge(n.q + ((size_t)h * 6 + PORT_INJECT) * N_COLS,
+                                  n.history && n.analytical, n.span,
+                                  ps_to_cyc(eff_time, n.freq), k * flits, go);
+            if (__syncthreads_or(valid && !go) && threadIdx.x == 0)
+                scratch_terms(n.q + (size_t)T * 6 * N_COLS);
+        }
+    } else if constexpr (NET == NET_ATAC) {
+        const AtacGeo g = atac_geo(n);
+        int k_onet = 0;
+        if (fan)
+            for (int w = 0; w < SW; ++w)
+                for (uint32_t b = (uint32_t)pend[w]; b; b &= b - 1) {
+                    const int s = w * 32 + __ffs(b) - 1;
+                    k_onet += s < T && g.onet(h, s);
+                }
+        if (n.contention) {
+            atac_stage(n, rows);
+            const bool go = fan && k_onet > 0 && en;
+            const Lane ln{valid, go, go ? g.cluster(h) : 2 * (int)n.C,
+                          ps_to_cyc(eff_time, n.freq),
+                          k_onet * flits > 1 ? k_onet * flits : 1};
+            delay = scatter_delay(rows, 2 * (int)n.C,
+                                  n.history && n.analytical, n.span, ln);
+            atac_commit(n, rows);
+        }
+    }
+    if (!fan) return;
+    int rank = 0;
+    for (int w = 0; w < SW; ++w) {
+        for (uint32_t bits = (uint32_t)pend[w]; bits; bits &= bits - 1) {
+            const int s = w * 32 + __ffs(bits) - 1;
+            if (s >= T) break;
+            int64_t arrival = 0;
+            if constexpr (NET == NET_HBH) {
+                const int w_ = (int)n.w;
+                const int64_t hops = abs(h % w_ - s % w_) + abs(h / w_ - s / w_);
+                const int64_t step = n.router_delay + n.link_delay;
+                const int64_t zl = n.router_delay + (hops + 1) * step +
+                                   (h == s ? 0 : flits);
+                arrival = eff_time + cyc_to_ps(
+                    en ? zl + delay + rank * flits : 0, n.freq);
+            } else if constexpr (NET == NET_ATAC) {
+                const AtacGeo g = atac_geo(n);
+                const int64_t extra =
+                    rank * flits + (g.onet(h, s) ? delay : 0);
+                arrival = eff_time + atac_zeroload(n, g, h, s, flits_raw, en) +
+                          cyc_to_ps(en ? extra : 0, n.freq);
+            }
+            const size_t cell = (size_t)s * T + h;
+            a.fwd_type[cell] = (uint8_t)fwd_msg;
+            a.fwd_line[cell] = eff_line;
+            a.fwd_time[cell] = arrival;
+            ++rank;
+        }
+    }
+}
+
+template <int NET>
+__global__ void __launch_bounds__(NET == NET_ZL ? HOMES : MAX_HOMES)
 mem_home_start_kernel(const HomeArgs a) {
+    constexpr int NB = NET == NET_ZL ? HOMES : MAX_HOMES;
+    extern __shared__ long long net_rows[];
     const MemConsts& c = a.c;
     const int T = (int)c.T;
-    const int base = blockIdx.x * HOMES;
+    const int base = blockIdx.x * NB;
     const int h = base + threadIdx.x;
-    __shared__ unsigned long long best[HOMES];
+    __shared__ unsigned long long best[NB];
     best[threadIdx.x] = FAR;
     __syncthreads();
-    for (int r = threadIdx.x; r < T; r += HOMES) {
+    for (int r = threadIdx.x; r < T; r += blockDim.x) {
         if (a.req_type[r] == MSG_NONE) continue;
         const int hh = a.req_home[r] - base;
-        if (hh >= 0 && hh < HOMES)
+        if (hh >= 0 && hh < (int)blockDim.x)
             atomicMin(&best[hh], (unsigned long long)(a.req_time[r] * T + r));
     }
     __syncthreads();
-    if (h >= T) return;
+    const bool valid = h < T;
+    const bool en = *a.enabled;
 
+    // this home's messages: the immediate reply, the fan-out
+    bool imm = false, imm_ex = false, fan = false;
+    int32_t rreq = 0, eff_line = 0;
+    int64_t ready = 0, eff_time = 0;
+    int fwd_msg = 0;
     const unsigned long long key = best[threadIdx.x];
     const bool found = key < FAR;
     const int r_col = found ? (int)(key % (unsigned long long)T) : 0;
-    const bool can_start = !a.active[h];
+    const bool can_start = valid && !a.active[h];
     const bool use_saved = can_start && a.saved_valid[h];
     const bool use_pop = can_start && !use_saved && found;
-    if (!(use_saved || use_pop)) return;
-
-    const bool en = *a.enabled;
-    const int64_t dram_lat = en ? c.dram_lat_ps : 0;
-    const int64_t dir_access = en ? c.dir_access_ps : 0;
-    const int rtype = use_saved ? a.saved_type[h] : a.req_type[r_col];
-    const int32_t rline = use_saved ? a.saved_line[h] : a.req_line[r_col];
-    const int32_t rreq = use_saved ? a.saved_requester[h] : r_col;
-    int64_t rtime = use_saved ? a.saved_time_ps[h] : a.req_time[r_col];
-    // the directory's message sync, once per message
-    if (!use_saved)
-        rtime += en ? (rreq == h ? c.sync_dir_l2_ps : c.sync_dir_net_ps) : 0;
-    // same-address serialization floor
-    if (rline == a.last_line[h]) rtime = max(rtime, a.last_done_ps[h]);
-    if (use_pop) a.req_type[r_col] = MSG_NONE;
-    if (use_saved) a.saved_valid[h] = false;
-
-    // the directory set: lookup, else a free way, else the fewest sharers
-    const int DW = (int)c.DW, SW = (int)c.SW;
-    const int64_t set = rline % c.DS;
-    int64_t* words = a.entry + ((size_t)h * c.DS + set) * DW;
-    int way = -1, free_way = -1, victim = 0;
-    int32_t min_nsh = 0x7FFFFFFF;
-    for (int w = 0; w < DW; ++w) {
-        const int64_t e = words[w];
-        const int32_t tag = e_tag(e);
-        if (way < 0 && tag == rline) way = w;
-        if (free_way < 0 && tag == -1) free_way = w;
-        if (e_nsh(e) < min_nsh) { min_nsh = e_nsh(e); victim = w; }
+    const bool starting = use_saved || use_pop;
+    if constexpr (NET == NET_ZL) {
+        if (!starting) return;     // no barrier follows
     }
-    const bool dfound = way >= 0;
-    const int alloc = dfound ? way : (free_way >= 0 ? free_way : victim);
-    const int64_t vw = words[alloc];
-    const int32_t v_line = e_tag(vw), v_owner = e_owner(vw);
-    const int v_dstate = e_state(vw);
-    int32_t* vsh = a.sharers + ((size_t)h * c.DS + set) * DW * SW +
-                   (size_t)alloc * SW;
+    if (starting) {
+        const int64_t dram_lat = en ? c.dram_lat_ps : 0;
+        const int64_t dir_access = en ? c.dir_access_ps : 0;
+        const int rtype = use_saved ? a.saved_type[h] : a.req_type[r_col];
+        const int32_t rline = use_saved ? a.saved_line[h] : a.req_line[r_col];
+        rreq = use_saved ? a.saved_requester[h] : r_col;
+        int64_t rtime = use_saved ? a.saved_time_ps[h] : a.req_time[r_col];
+        // the directory's message sync, once per message
+        if (!use_saved)
+            rtime += en ? (rreq == h ? c.sync_dir_l2_ps : c.sync_dir_net_ps)
+                        : 0;
+        // same-address serialization floor
+        if (rline == a.last_line[h]) rtime = max(rtime, a.last_done_ps[h]);
+        if (use_pop) a.req_type[r_col] = MSG_NONE;
+        if (use_saved) a.saved_valid[h] = false;
 
-    // NULLIFY: a full set's live victim runs first; the request is saved
-    const bool nullify = !dfound && free_way < 0 && v_dstate != DIR_UNCACHED;
-    if (nullify) {
-        a.saved_valid[h] = true;
-        a.saved_type[h] = (uint8_t)rtype;
-        a.saved_line[h] = rline;
-        a.saved_requester[h] = rreq;
-        a.saved_time_ps[h] = rtime;
-    }
-    const int32_t eff_line = nullify ? v_line : rline;
-    const int eff_type = nullify ? MSG_NULLIFY : rtype;
-    const int eff_dstate = nullify ? v_dstate
-                                   : (dfound ? v_dstate : DIR_UNCACHED);
-    const int64_t eff_time = rtime + dir_access;
-    const bool run_req = !nullify;
-    const bool is_ex = eff_type == MSG_EX_REQ, is_sh = eff_type == MSG_SH_REQ;
-    const bool uncached = eff_dstate == DIR_UNCACHED;
-    const bool shared = eff_dstate == DIR_SHARED;
-    const bool modified = eff_dstate == DIR_MODIFIED;
+        // the directory set: lookup, else a free way, else the fewest
+        // sharers
+        const int DW = (int)c.DW, SW = (int)c.SW;
+        const int64_t set = rline % c.DS;
+        int64_t* words = a.entry + ((size_t)h * c.DS + set) * DW;
+        int way = -1, free_way = -1, victim = 0;
+        int32_t min_nsh = 0x7FFFFFFF;
+        for (int w = 0; w < DW; ++w) {
+            const int64_t e = words[w];
+            const int32_t tag = e_tag(e);
+            if (way < 0 && tag == rline) way = w;
+            if (free_way < 0 && tag == -1) free_way = w;
+            if (e_nsh(e) < min_nsh) { min_nsh = e_nsh(e); victim = w; }
+        }
+        const bool dfound = way >= 0;
+        const int alloc = dfound ? way : (free_way >= 0 ? free_way : victim);
+        const int64_t vw = words[alloc];
+        const int32_t v_line = e_tag(vw), v_owner = e_owner(vw);
+        const int v_dstate = e_state(vw);
+        int32_t* vsh = a.sharers + ((size_t)h * c.DS + set) * DW * SW +
+                       (size_t)alloc * SW;
 
-    // (a) immediate finishes: UNCACHED requests, SH on SHARED
-    const bool imm_ex = run_req && is_ex && uncached;
-    const bool imm_sh = run_req && is_sh && (uncached || shared);
-    const bool imm = imm_ex || imm_sh;
-    const bool keep = imm_sh && shared;   // the entry's sharers stay
-    int32_t n_cur = 0;
-    bool had = false;
-    if (keep) {
-        for (int w = 0; w < SW; ++w) n_cur += __popc((uint32_t)vsh[w]);
-        had = ((uint32_t)vsh[rreq / 32] >> (rreq % 32)) & 1;
-    }
+        // NULLIFY: a full set's live victim runs first; the request is
+        // saved
+        const bool nullify = !dfound && free_way < 0 &&
+                             v_dstate != DIR_UNCACHED;
+        if (nullify) {
+            a.saved_valid[h] = true;
+            a.saved_type[h] = (uint8_t)rtype;
+            a.saved_line[h] = rline;
+            a.saved_requester[h] = rreq;
+            a.saved_time_ps[h] = rtime;
+        }
+        eff_line = nullify ? v_line : rline;
+        const int eff_type = nullify ? MSG_NULLIFY : rtype;
+        const int eff_dstate = nullify ? v_dstate
+                                       : (dfound ? v_dstate : DIR_UNCACHED);
+        eff_time = rtime + dir_access;
+        const bool run_req = !nullify;
+        const bool is_ex = eff_type == MSG_EX_REQ;
+        const bool is_sh = eff_type == MSG_SH_REQ;
+        const bool uncached = eff_dstate == DIR_UNCACHED;
+        const bool shared = eff_dstate == DIR_SHARED;
+        const bool modified = eff_dstate == DIR_MODIFIED;
 
-    // (b) fan-out: EX/NULLIFY on SHARED invalidates every sharer; any
-    // request on MODIFIED goes to the owner (WB for SH, else FLUSH)
-    const bool fan_inv = (run_req && is_ex && shared) || (nullify && shared);
-    const bool fan_owner = modified;
-    if (fan_inv || fan_owner) {
-        const int fwd_msg = fan_inv ? MSG_INV_REQ
-                                    : (is_sh ? MSG_WB_REQ : MSG_FLUSH_REQ);
-        const int owner = min(max(v_owner, 0), T - 1);
-        int32_t* pend = a.pending + (size_t)h * SW;
-        for (int w = 0; w < SW; ++w) {
-            uint32_t bits = fan_inv ? (uint32_t)vsh[w]
-                                    : (owner / 32 == w ? 1u << (owner % 32)
-                                                       : 0u);
-            pend[w] = (int32_t)bits;
-            while (bits) {
-                const int b = __ffs(bits) - 1;
-                bits &= bits - 1;
-                const int s = w * 32 + b;
-                if (s >= T) break;
-                const size_t cell = (size_t)s * T + h;
-                a.fwd_type[cell] = (uint8_t)fwd_msg;
-                a.fwd_line[cell] = eff_line;
-                a.fwd_time[cell] = eff_time + net_lat_ps(c, h, s, c.req_bits,
-                                                         en);
+        // (a) immediate finishes: UNCACHED requests, SH on SHARED
+        imm_ex = run_req && is_ex && uncached;
+        const bool imm_sh = run_req && is_sh && (uncached || shared);
+        imm = imm_ex || imm_sh;
+        const bool keep = imm_sh && shared;   // the entry's sharers stay
+        int32_t n_cur = 0;
+        bool had = false;
+        if (keep) {
+            for (int w = 0; w < SW; ++w) n_cur += __popc((uint32_t)vsh[w]);
+            had = ((uint32_t)vsh[rreq / 32] >> (rreq % 32)) & 1;
+        }
+
+        // (b) fan-out: EX/NULLIFY on SHARED invalidates every sharer; any
+        // request on MODIFIED goes to the owner (WB for SH, else FLUSH);
+        // the targets are the pending words, the copies go out below
+        const bool fan_inv = (run_req && is_ex && shared) ||
+                             (nullify && shared);
+        fan = fan_inv || modified;
+        if (fan) {
+            fwd_msg = fan_inv ? MSG_INV_REQ
+                              : (is_sh ? MSG_WB_REQ : MSG_FLUSH_REQ);
+            const int owner = min(max(v_owner, 0), T - 1);
+            int32_t* pend = a.pending + (size_t)h * SW;
+            for (int w = 0; w < SW; ++w) {
+                uint32_t bits = fan_inv ? (uint32_t)vsh[w]
+                                        : (owner / 32 == w
+                                           ? 1u << (owner % 32) : 0u);
+                pend[w] = (int32_t)bits;
+                if constexpr (NET == NET_ZL) {
+                    // the zero-load copies go out here, one a target
+                    while (bits) {
+                        const int b = __ffs(bits) - 1;
+                        bits &= bits - 1;
+                        const int s = w * 32 + b;
+                        if (s >= T) break;
+                        const size_t cell = (size_t)s * T + h;
+                        a.fwd_type[cell] = (uint8_t)fwd_msg;
+                        a.fwd_line[cell] = eff_line;
+                        a.fwd_time[cell] = eff_time + net_lat_ps(
+                            c, h, s, c.req_bits, en);
+                    }
+                }
+            }
+            a.active[h] = true;
+            a.mtype[h] = (uint8_t)eff_type;
+            a.line[h] = eff_line;
+            a.requester[h] = rreq;
+            a.time_ps[h] = eff_time;
+            a.data_cached[h] = false;
+        }
+
+        // one entry write: the new entry's install (UNCACHED, empty) and
+        // the immediate finish; the finish wins where both apply
+        if (!dfound || imm) {
+            words[alloc] = e_pack(
+                !dfound ? rline : v_line,
+                imm ? (imm_ex ? DIR_MODIFIED : DIR_SHARED) : DIR_UNCACHED,
+                imm_ex ? rreq : -1,
+                imm_ex ? 1 : (imm ? n_cur + (had ? 0 : 1) : 0));
+            for (int w = 0; w < SW; ++w) {
+                uint32_t v = keep ? (uint32_t)vsh[w] : 0u;
+                if (imm && rreq / 32 == w) v |= 1u << (rreq % 32);
+                vsh[w] = (int32_t)v;
             }
         }
-        a.active[h] = true;
-        a.mtype[h] = (uint8_t)eff_type;
-        a.line[h] = eff_line;
-        a.requester[h] = rreq;
-        a.time_ps[h] = eff_time;
-        a.data_cached[h] = false;
+        if (imm) {
+            const bool cdata = a.cdata_valid[h] && a.cdata_line[h] == eff_line;
+            ready = eff_time + (cdata ? 0 : dram_lat);
+            if (cdata) a.cdata_valid[h] = false;
+            if constexpr (NET == NET_ZL) {
+                a.rep_type[rreq] = (uint8_t)(a.rep_type[rreq] +
+                                             (imm_ex ? MSG_EX_REP
+                                                     : MSG_SH_REP));
+                a.rep_time[rreq] += ready + net_lat_ps(c, h, rreq,
+                                                       c.rep_bits, en);
+            }
+            a.last_line[h] = eff_line;
+            a.last_done_ps[h] = ready;
+            if (en && !cdata) {
+                a.dram_reads[h] += 1;
+                a.dram_total_lat[h] += dram_lat;
+            }
+        }
+        if (en) a.dir_accesses[h] += 1;
+        atomicAdd(a.progress, 1);
     }
 
-    // one entry write: the new entry's install (UNCACHED, empty) and the
-    // immediate finish; the finish wins where both apply
-    if (!dfound || imm) {
-        words[alloc] = e_pack(
-            !dfound ? rline : v_line,
-            imm ? (imm_ex ? DIR_MODIFIED : DIR_SHARED) : DIR_UNCACHED,
-            imm_ex ? rreq : -1,
-            imm_ex ? 1 : (imm ? n_cur + (had ? 0 : 1) : 0));
-        for (int w = 0; w < SW; ++w) {
-            uint32_t v = keep ? (uint32_t)vsh[w] : 0u;
-            if (imm && rreq / 32 == w) v |= 1u << (rreq % 32);
-            vsh[w] = (int32_t)v;
+    if constexpr (NET != NET_ZL) {
+        // the immediate replies through the contention net, then the
+        // fan-outs against the queues they committed
+        const int64_t arrival = mem_send<NET>(c, a.n, net_rows, valid, h,
+                                              rreq, c.rep_bits, ready, imm,
+                                              en);
+        if (imm) {
+            a.rep_type[rreq] = (uint8_t)(a.rep_type[rreq] +
+                                         (imm_ex ? MSG_EX_REP : MSG_SH_REP));
+            a.rep_time[rreq] += arrival;
         }
+        fan_out<NET>(a, net_rows, valid, h, fan, fwd_msg, eff_line,
+                     eff_time, en);
     }
-    if (imm) {
-        const bool cdata = a.cdata_valid[h] && a.cdata_line[h] == eff_line;
-        const int64_t ready = eff_time + (cdata ? 0 : dram_lat);
-        if (cdata) a.cdata_valid[h] = false;
-        const int64_t arrival = ready + net_lat_ps(c, h, rreq, c.rep_bits, en);
-        a.rep_type[rreq] = (uint8_t)(a.rep_type[rreq] +
-                                     (imm_ex ? MSG_EX_REP : MSG_SH_REP));
-        a.rep_time[rreq] += arrival;
-        a.last_line[h] = eff_line;
-        a.last_done_ps[h] = ready;
-        if (en && !cdata) {
-            a.dram_reads[h] += 1;
-            a.dram_total_lat[h] += dram_lat;
-        }
+}
+
+template <int NET>
+static int launch(const HomeArgs* args, cudaStream_t stream) {
+    const int T = (int)args->c.T;
+    if (NET == NET_ZL) {
+        mem_home_start_kernel<NET><<<(T + HOMES - 1) / HOMES, HOMES, 0,
+                                     stream>>>(*args);
+        return (int)cudaGetLastError();
     }
-    if (en) a.dir_accesses[h] += 1;
-    atomicAdd(a.progress, 1);
+    // a contention net: one CTA, so that every route set sees the
+    // queues the set before it committed
+    const size_t smem = net_smem(NET, args->n);
+    static size_t smem_set = 0;    // the opt-in beyond the static default
+    if (smem > smem_set) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            mem_home_start_kernel<NET>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        smem_set = smem;
+    }
+    mem_home_start_kernel<NET><<<1, (T + 31) / 32 * 32, smem, stream>>>(
+        *args);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int gt_mem_home_start(const HomeArgs* args, cudaStream_t stream) {
-    static_assert(sizeof(HomeArgs) == (32 + 1 + 31) * 8,
-                  "HomeArgs: 32 pointers, one int and MemConsts");
-    const int T = (int)args->c.T;
-    mem_home_start_kernel<<<(T + HOMES - 1) / HOMES, HOMES, 0, stream>>>(
-        *args);
-    return (int)cudaGetLastError();
+    static_assert(sizeof(HomeArgs) == (32 + 1 + 31 + 22) * 8,
+                  "HomeArgs: 32 pointers, one int, MemConsts and NetConsts");
+    switch ((int)args->c.net_kind) {
+        case 2: return launch<NET_HBH>(args, stream);
+        case 3: return launch<NET_ATAC>(args, stream);
+        default: return launch<NET_ZL>(args, stream);
+    }
 }

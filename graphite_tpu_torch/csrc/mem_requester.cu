@@ -86,10 +86,13 @@ struct ReqArgs {
     int64_t* func_errors;
     int64_t L;
     MemConsts c;
+    NetConsts n;
 };
 
+template <int NET>
 __global__ void __launch_bounds__(MAX_THREADS)
 mem_requester_kernel(const ReqArgs a) {
+    extern __shared__ long long net_rows[];
     const MemConsts& c = a.c;
     const int T = (int)c.T;
     const int t = threadIdx.x;
@@ -112,12 +115,15 @@ mem_requester_kernel(const ReqArgs a) {
         const int s = next_slot(c, op, flags, en, a.slot[u]);
         const bool starting = act && a.phase[u] == PHASE_IDLE && s < 3;
         bool progressed = false, func_wr = false, func_chk = false;
-        int64_t word = 0;
+        // this repeat's messages: the upgrade's eviction, then the request
+        bool up_go = false, miss_go = false, up_dirty = false, wr = false;
+        int32_t line = 0;
+        int64_t home = 0, req_send = 0, word = 0;
         if (starting) {
             const bool icache = s == 0;
             const int64_t s_addr = icache ? (pc & U32) : (s == 1 ? addr0
                                                                  : addr1);
-            const int32_t line = (int32_t)(s_addr >> c.line_bits);
+            line = (int32_t)(s_addr >> c.line_bits);
             const bool s_write =
                 !icache && (flags & (s == 1 ? FLAG_MEM0_WRITE
                                             : FLAG_MEM1_WRITE)) != 0;
@@ -160,11 +166,12 @@ mem_requester_kernel(const ReqArgs a) {
             const bool l2_miss = l1_miss && !l2_permit;
             const bool upgrade = l2_miss && s_write &&
                                  (st2 == ST_SHARED || st2 == ST_OWNED);
-            const bool upgrade_dirty = upgrade && st2 == ST_OWNED;
-            const int64_t home = a.mc[line % c.n_mc];
+            up_dirty = upgrade && st2 == ST_OWNED;
+            wr = s_write;
+            home = a.mc[line % c.n_mc];
             const size_t ecell = (size_t)home * T + t;
             const bool stall = upgrade && a.evict_type[ecell] != MSG_NONE;
-            const bool miss_go = l2_miss && !stall;
+            miss_go = l2_miss && !stall;
 
             const int64_t sclock = clock + sync_core;
             if (!c.l1i_rr) row_touch(ri, wi, l1_hit && icache);
@@ -201,9 +208,8 @@ mem_requester_kernel(const ReqArgs a) {
                     icache ? MOD_L1I : MOD_L1D;
             if (!c.l2_rr) row_touch(r2, w2, l2_hit);
 
-            const int64_t req_send = sclock + l1_tag +
-                                     ccyc(cyc, t, CYC_L2_TAG, f, en);
-            const bool up_go = upgrade && !stall;
+            req_send = sclock + l1_tag + ccyc(cyc, t, CYC_L2_TAG, f, en);
+            up_go = upgrade && !stall;
             row_invalidate(r2, line, up_go);
             if (c.track_util) {
                 int64_t* uc = a.util + ((size_t)t * c.S2 + r2.set) * c.W2 + w2;
@@ -218,19 +224,23 @@ mem_requester_kernel(const ReqArgs a) {
             row_store(rd);
             row_store(r2);
 
-            const int64_t arrival =
-                req_send + net_lat_ps(c, t, home, c.req_bits, en);
-            if (up_go) {
-                a.evict_type[ecell] = upgrade_dirty ? MSG_FLUSH_REP
-                                                    : MSG_INV_REP;
-                a.evict_line[ecell] = line;
-                a.evict_time[ecell] = arrival;
+            if constexpr (NET == NET_ZL) {
+                const int64_t arrival =
+                    req_send + net_lat_ps(c, t, home, c.req_bits, en);
+                if (up_go) {
+                    a.evict_type[ecell] = up_dirty ? MSG_FLUSH_REP
+                                                   : MSG_INV_REP;
+                    a.evict_line[ecell] = line;
+                    a.evict_time[ecell] = arrival;
+                }
+                if (miss_go) {
+                    a.req_type[t] = s_write ? MSG_EX_REQ : MSG_SH_REQ;
+                    a.req_home[t] = (int32_t)home;
+                    a.req_line[t] = line;
+                    a.req_time[t] = arrival;
+                }
             }
             if (miss_go) {
-                a.req_type[t] = s_write ? MSG_EX_REQ : MSG_SH_REQ;
-                a.req_home[t] = (int32_t)home;
-                a.req_line[t] = line;
-                a.req_time[t] = arrival;
                 a.phase[t] = PHASE_WAIT_REPLY;
                 a.rline[t] = line;
                 a.is_write[t] = s_write;
@@ -280,6 +290,28 @@ mem_requester_kernel(const ReqArgs a) {
                                (int64_t)(uint32_t)(s == 1 ? aux0 : aux1));
             }
         }
+        if constexpr (NET != NET_ZL) {
+            // the two message sets through the contention net, in order:
+            // the requests read the queues the evictions committed
+            const int64_t up_arr = mem_send<NET>(c, a.n, net_rows, live, t,
+                                                 (int)home, c.req_bits,
+                                                 req_send, up_go, en);
+            const int64_t rq_arr = mem_send<NET>(c, a.n, net_rows, live, t,
+                                                 (int)home, c.req_bits,
+                                                 req_send, miss_go, en);
+            if (up_go) {
+                const size_t ecell = (size_t)home * T + t;
+                a.evict_type[ecell] = up_dirty ? MSG_FLUSH_REP : MSG_INV_REP;
+                a.evict_line[ecell] = line;
+                a.evict_time[ecell] = up_arr;
+            }
+            if (miss_go) {
+                a.req_type[t] = wr ? MSG_EX_REQ : MSG_SH_REQ;
+                a.req_home[t] = (int32_t)home;
+                a.req_line[t] = line;
+                a.req_time[t] = rq_arr;
+            }
+        }
         // every store of this repeat has landed past this barrier
         const int n = __syncthreads_count(progressed);
         if (t == 0 && n > 0) atomicAdd(a.progress, n);
@@ -290,11 +322,29 @@ mem_requester_kernel(const ReqArgs a) {
     }
 }
 
-extern "C" int gt_mem_requester(const ReqArgs* args, cudaStream_t stream) {
-    static_assert(sizeof(ReqArgs) == (55 + 1 + 31) * 8,
-                  "ReqArgs: 55 pointers, L and MemConsts");
+template <int NET>
+static int launch(const ReqArgs* args, cudaStream_t stream) {
     const int T = (int)args->c.T;
     const int threads = (T + 31) / 32 * 32;
-    mem_requester_kernel<<<1, threads, 0, stream>>>(*args);
+    const size_t smem = net_smem(NET, args->n);
+    static size_t smem_set = 0;    // the opt-in beyond the static default
+    if (smem > smem_set) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            mem_requester_kernel<NET>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        smem_set = smem;
+    }
+    mem_requester_kernel<NET><<<1, threads, smem, stream>>>(*args);
     return (int)cudaGetLastError();
+}
+
+extern "C" int gt_mem_requester(const ReqArgs* args, cudaStream_t stream) {
+    static_assert(sizeof(ReqArgs) == (55 + 1 + 31 + 22) * 8,
+                  "ReqArgs: 55 pointers, L, MemConsts and NetConsts");
+    switch ((int)args->c.net_kind) {
+        case 2: return launch<NET_HBH>(args, stream);
+        case 3: return launch<NET_ATAC>(args, stream);
+        default: return launch<NET_ZL>(args, stream);
+    }
 }

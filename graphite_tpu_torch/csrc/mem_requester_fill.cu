@@ -66,10 +66,13 @@ struct FillArgs {
     int64_t* func_errors;
     int64_t L;
     MemConsts c;
+    NetConsts n;
 };
 
+template <int NET>
 __global__ void __launch_bounds__(MAX_THREADS)
 mem_requester_fill_kernel(const FillArgs a) {
+    extern __shared__ long long net_rows[];
     const MemConsts& c = a.c;
     const int T = (int)c.T;
     const int t = threadIdx.x;
@@ -81,7 +84,9 @@ mem_requester_fill_kernel(const FillArgs a) {
     const bool have_rep = live && a.phase[u] == PHASE_WAIT_REPLY &&
                           a.rep_type[u] != MSG_NONE;
     bool fill = false, func_wr = false, func_chk = false;
-    int64_t word = 0;
+    // the victim's eviction message
+    bool evict_go = false, dirty = false;
+    int64_t word = 0, v_home = 0, fill_l2 = 0;
     if (have_rep) {
         const int64_t f = a.freq[t];
         const int64_t* cyc = a.cyc;
@@ -99,10 +104,10 @@ mem_requester_fill_kernel(const FillArgs a) {
         int v_state;
         const int way = row_victim(r2, c.l2_rr, a.ways[2 * T + t], v_valid,
                                    v_line, v_state);
-        const int64_t v_home = a.mc[set_of(v_line, c.n_mc)];
+        v_home = a.mc[set_of(v_line, c.n_mc)];
         const size_t ecell = (size_t)v_home * T + t;
         fill = !(v_valid && a.evict_type[ecell] != MSG_NONE);
-        const bool evict_go = v_valid && fill;
+        evict_go = v_valid && fill;
         if (fill) {
             const int new_state = a.rep_type[t] == MSG_EX_REP ? ST_MODIFIED
                                                               : ST_SHARED;
@@ -116,17 +121,17 @@ mem_requester_fill_kernel(const FillArgs a) {
                               cur, evict_go && en);
             }
             a.cloc[lcell] = comp_l1i ? MOD_L1I : MOD_L1D;
-            const bool dirty = v_state == ST_MODIFIED || v_state == ST_OWNED;
-            const int64_t fill_l2 = a.rep_time[t] +
-                                    ccyc(cyc, t, CYC_SYNC_L2_NET, f, en) +
-                                    ccyc(cyc, t, CYC_L2_DAT, f, en);
+            dirty = v_state == ST_MODIFIED || v_state == ST_OWNED;
+            fill_l2 = a.rep_time[t] + ccyc(cyc, t, CYC_SYNC_L2_NET, f, en) +
+                      ccyc(cyc, t, CYC_L2_DAT, f, en);
             const int64_t done = fill_l2 + ccyc(
                 cyc, t, comp_l1i ? CYC_L1I_DAT : CYC_L1D_DAT, f, en);
             if (evict_go) {
                 a.evict_type[ecell] = dirty ? MSG_FLUSH_REP : MSG_INV_REP;
                 a.evict_line[ecell] = v_line;
-                a.evict_time[ecell] = fill_l2 + net_lat_ps(
-                    c, t, v_home, dirty ? c.rep_bits : c.req_bits, en);
+                if constexpr (NET == NET_ZL)
+                    a.evict_time[ecell] = fill_l2 + net_lat_ps(
+                        c, t, v_home, dirty ? c.rep_bits : c.req_bits, en);
                 if (en) a.evictions[t] += 1;
             }
             a.rep_type[t] = MSG_NONE;
@@ -186,6 +191,13 @@ mem_requester_fill_kernel(const FillArgs a) {
             }
         }
     }
+    if constexpr (NET != NET_ZL) {
+        // the evictions through the contention net
+        const int64_t e_arr = mem_send<NET>(
+            c, a.n, net_rows, live, t, (int)v_home,
+            dirty ? c.rep_bits : c.req_bits, fill_l2, evict_go, en);
+        if (evict_go) a.evict_time[(size_t)v_home * T + t] = e_arr;
+    }
     // every store of the phase has landed past this barrier
     const int n = __syncthreads_count(fill);
     if (t == 0 && n > 0) atomicAdd(a.progress, n);
@@ -197,12 +209,30 @@ mem_requester_fill_kernel(const FillArgs a) {
                       next_slot(c, op, flags, en, a.slot[t]) >= 3;
 }
 
-extern "C" int gt_mem_requester_fill(const FillArgs* args,
-                                     cudaStream_t stream) {
-    static_assert(sizeof(FillArgs) == (40 + 1 + 31) * 8,
-                  "FillArgs: 40 pointers, L and MemConsts");
+template <int NET>
+static int launch(const FillArgs* args, cudaStream_t stream) {
     const int T = (int)args->c.T;
     const int threads = (T + 31) / 32 * 32;
-    mem_requester_fill_kernel<<<1, threads, 0, stream>>>(*args);
+    const size_t smem = net_smem(NET, args->n);
+    static size_t smem_set = 0;    // the opt-in beyond the static default
+    if (smem > smem_set) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            mem_requester_fill_kernel<NET>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        smem_set = smem;
+    }
+    mem_requester_fill_kernel<NET><<<1, threads, smem, stream>>>(*args);
     return (int)cudaGetLastError();
+}
+
+extern "C" int gt_mem_requester_fill(const FillArgs* args,
+                                     cudaStream_t stream) {
+    static_assert(sizeof(FillArgs) == (40 + 1 + 31 + 22) * 8,
+                  "FillArgs: 40 pointers, L, MemConsts and NetConsts");
+    switch ((int)args->c.net_kind) {
+        case 2: return launch<NET_HBH>(args, stream);
+        case 3: return launch<NET_ATAC>(args, stream);
+        default: return launch<NET_ZL>(args, stream);
+    }
 }

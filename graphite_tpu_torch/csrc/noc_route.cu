@@ -47,29 +47,10 @@
 // trips (lane record, the path's rows, M/G/1 moments, the barrier, the
 // accumulators, the rows) and the launch set its time.
 #include "common.cuh"
-#include "queue_common.cuh"
+#include "net_route.cuh"
 
-#define PORT_RIGHT 0
-#define PORT_LEFT 1
-#define PORT_UP 2
-#define PORT_DOWN 3
-#define PORT_SELF 4
-#define PORT_INJECT 5
-#define NEG_INF (-(1LL << 61))
 #define BLOCK 32          // threads (one warp) a CTA
 #define N_PRE 6           // queue columns a path cell reads (QT .. N_ARR)
-
-// per (cell, port) accumulators (ops/noc_route.py N_ACC)
-#define A_CNT 0        // members
-#define A_PROC 1       // sum of members' processing times
-#define A_PROC2 2      // sum of their squares
-#define A_DELAY 3      // sum of members' delays
-#define A_ANA 4        // members too old (the M/G/1 fallback)
-#define A_NEWEST 5     // max of arr + delay + proc (floor 0)
-#define A_WIN 6        // members in window
-#define A_ARR 7        // max in-window arrival (floor 0; arrivals >= 0)
-#define A_WPROC 8      // sum of in-window processing times
-#define N_ACC 9
 
 // Argument block = graphite_tpu_torch/ops/noc_route.py `_pack`.
 struct NocArgs {
@@ -85,45 +66,6 @@ struct NocArgs {
     int64_t T, w, h, router_delay, link_delay, flit_bits, freq_mhz,
         history, analytical, span, contention;
 };
-
-// reductions into the accumulators: `red` returns nothing, so a thread
-// does not wait for its atomics (atomicAdd compiles to a returning ATOMG)
-__device__ __forceinline__ void red_add(long long* p, long long v) {
-    asm volatile("red.global.add.u64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ void red_max(long long* p, long long v) {
-    asm volatile("red.global.max.s64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
-}
-
-// the delay of one member cell (queue row `row`; `r` its first six
-// columns: queue time, window start and the M/G/1 moments); folds the
-// member's terms into the row's accumulators
-__device__ __forceinline__ int64_t visit(const NocArgs& a, int row,
-                                         const long long* r, int64_t arr,
-                                         int64_t proc) {
-    const int64_t qt = r[COL_QT];
-    bool too_old = false;
-    if (a.history && a.analytical) too_old = arr + proc < r[COL_WS];
-    const int64_t dly = too_old
-        ? mg1_wait(r[COL_N_ARR], r[COL_SUM_ST], r[COL_SUM_ST2],
-                   r[COL_NEWEST])
-        : (qt - arr > 0 ? qt - arr : 0);
-    long long* acc = a.scratch + (size_t)row * N_ACC;
-    red_add(acc + A_CNT, 1);
-    red_add(acc + A_PROC, proc);
-    red_add(acc + A_PROC2, proc * proc);
-    red_add(acc + A_DELAY, dly);
-    red_max(acc + A_NEWEST, arr + dly + proc);
-    if (too_old) {
-        red_add(acc + A_ANA, 1);
-    } else {
-        red_add(acc + A_WIN, 1);
-        red_max(acc + A_ARR, arr);
-        red_add(acc + A_WPROC, proc);
-    }
-    return dly;
-}
 
 // a barrier of the whole grid (co-resident: a cooperative launch), on the
 // two words after the accumulators: arrivals and generation
@@ -147,31 +89,13 @@ __device__ void grid_barrier(const NocArgs& a, int R) {
     __syncthreads();
 }
 
-// a load from L2 that the compiler keeps after the barrier
-__device__ __forceinline__ long long ld_l2(const long long* p) {
-    long long v;
-    asm volatile("ld.global.cg.s64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-    return v;
-}
-
-// one packet's XY path: the queue row of its c-th cell
-struct Path {
-    int w, sx, sy, dx, nh, dist, sgx, sgy, ph, pv, self_row;
-
-    __device__ __forceinline__ int row(int c) const {
-        if (c == 0) return (sy * w + sx) * 6 + PORT_INJECT;
-        if (c <= nh) return (sy * w + sx + (c - 1) * sgx) * 6 + ph;
-        if (c <= dist) return ((sy + (c - 1 - nh) * sgy) * w + dx) * 6 + pv;
-        return self_row;
-    }
-};
-
 __global__ void __launch_bounds__(BLOCK) noc_route_kernel(const NocArgs a) {
     extern __shared__ long long cells[];    // [BLOCK][w + h + 2][N_PRE]
     const int T = (int)a.T, w = (int)a.w;
     const int max_cells = w + (int)a.h + 2;
     long long* mine = cells + (size_t)threadIdx.x * max_cells * N_PRE;
     const bool en = *a.enabled;
+    const bool hist_ana = a.history && a.analytical;
     const int64_t step = a.router_delay + a.link_delay;
     const int tid = blockIdx.x * blockDim.x + threadIdx.x;
     const int n_threads = gridDim.x * blockDim.x;
@@ -197,11 +121,7 @@ __global__ void __launch_bounds__(BLOCK) noc_route_kernel(const NocArgs a) {
         // then the walk.
         int64_t cont = 0, base = 0, carry = 0, run = NEG_INF;
         const int n_cells = live && a.contention ? (int)dist + 2 : 0;
-        const Path path{w, sx, sy, dx, nh, (int)dist,
-                        dx > sx ? 1 : -1, dy > sy ? 1 : -1,
-                        dx > sx ? PORT_RIGHT : PORT_LEFT,
-                        dy > sy ? PORT_UP : PORT_DOWN,
-                        (dy * w + dx) * 6 + PORT_SELF};
+        const Path path(w, i, d);
 #pragma unroll 8
         for (int c = 0; c < n_cells; ++c) {
             const int64_t* r = a.q + (size_t)path.row(c) * N_COLS;
@@ -223,8 +143,8 @@ __global__ void __launch_bounds__(BLOCK) noc_route_kernel(const NocArgs a) {
                       (carry > run ? carry : run);
             }
             const int64_t qt = mine[c * N_PRE + COL_QT];
-            const int64_t dly = visit(a, path.row(c), mine + c * N_PRE, arr,
-                                      flits);
+            const int64_t dly = hbh_visit(a.scratch, hist_ana, path.row(c),
+                                          mine + c * N_PRE, arr, flits);
             cont += dly;
             if (c == 0) {
                 base = t0 + a.router_delay + dly;
@@ -252,24 +172,8 @@ __global__ void __launch_bounds__(BLOCK) noc_route_kernel(const NocArgs a) {
         int64_t v[N_ACC];
 #pragma unroll
         for (int k = 0; k < N_ACC; ++k) v[k] = ld_l2(acc + k);
-        const int64_t cnt = v[A_CNT];
-        if (cnt == 0) continue;
-        int64_t* r = a.q + (size_t)row * N_COLS;
-        int64_t qt = r[COL_QT], ws = r[COL_WS];
-        if (v[A_WIN] > 0) {
-            qt = (qt > v[A_ARR] ? qt : v[A_ARR]) + v[A_WPROC];
-            if (qt - a.span > ws) ws = qt - a.span;
-        }
-        r[COL_QT] = qt;
-        r[COL_WS] = ws;
-        if (v[A_NEWEST] > r[COL_NEWEST]) r[COL_NEWEST] = v[A_NEWEST];
-        r[COL_SUM_ST] += v[A_PROC];
-        r[COL_SUM_ST2] += v[A_PROC2];
-        r[COL_N_ARR] += cnt;
-        r[COL_REQS] += cnt;
-        r[COL_UTIL] += v[A_PROC];
-        r[COL_DELAY] += v[A_DELAY];
-        r[COL_ANA] += v[A_ANA];
+        if (v[A_CNT] == 0) continue;
+        hbh_fold_row(a.q + (size_t)row * N_COLS, v, a.span);
 #pragma unroll
         for (int k = 0; k < N_ACC; ++k) acc[k] = 0;
     }

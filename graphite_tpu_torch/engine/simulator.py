@@ -3,10 +3,10 @@
 Port of `graphite_tpu/engine/simulator.py` for the path this package
 supports: the simple in-order and the iocoom cores (mixed per tile by
 `[tile] model_list`), without a memory subsystem or with the private-L1/L2
-MSI directory protocol (`full_map` directory, magic or emesh_hop_counter
-MEMORY network), the magic, emesh_hop_counter, emesh_hop_by_hop or atac
-USER network, and the `lax` / `lax_barrier` clock-skew schemes, resident
-on one device.  `SimResults`, `summary()`,
+MSI directory protocol (`full_map` directory), the magic,
+emesh_hop_counter, emesh_hop_by_hop or atac network as the USER and as
+the MEMORY net, and the `lax` / `lax_barrier` clock-skew schemes,
+resident on one device.  `SimResults`, `summary()`,
 `DeadlockError` and `MailboxOverflowError` match the JAX package.
 
 Every other configuration raises `NotImplementedError` naming the
@@ -56,6 +56,32 @@ class DeadlockError(RuntimeError):
 
 class MailboxOverflowError(RuntimeError):
     pass
+
+
+def check_card_limits(params: EngineParams, n_barriers: int) -> None:
+    """Raise the `ValueError` a one-CTA kernel of this path would raise at
+    its first launch on a card: `mem_requester`, `mem_requester_fill`
+    and (under a contention MEMORY net) `mem_net_route` past 1,024
+    tiles, `atac_route` past 1,024 lanes, `barrier_sync` past 1,024
+    barriers.  `Simulator` calls it for a CUDA device; CPU runs take the
+    plain versions, which have no such limit."""
+    from graphite_tpu_torch.ops.atac_route import MAX_LANES
+    from graphite_tpu_torch.ops.barrier_sync import MAX_BARRIERS
+    from graphite_tpu_torch.ops.build import check_width
+    from graphite_tpu_torch.ops.mem_net_route import MAX_PACKETS
+    from graphite_tpu_torch.ops.mem_requester import MAX_TILES
+
+    T = params.n_tiles
+    mp = params.mem
+    if mp is not None:
+        for name in ("mem_requester", "mem_requester_fill"):
+            check_width(name, T, MAX_TILES, "tiles")
+        if mp.net_hbh is not None or mp.net_atac is not None:
+            check_width("mem_net_route", T, MAX_PACKETS, "packets")
+    if params.user_atac is not None:
+        check_width("atac_route", T, MAX_LANES, "lanes")
+    if "barrier" in params.units:
+        check_width("barrier_sync", n_barriers, MAX_BARRIERS, "barriers")
 
 
 def _not_ported(what: str, item: int):
@@ -387,6 +413,8 @@ class Simulator:
         )
 
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            check_card_limits(self.params, n_barriers)
         models_on = not cfg.get_bool(
             "general/trigger_models_within_application", False)
         state = init_state(

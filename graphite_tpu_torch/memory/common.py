@@ -3,7 +3,7 @@
 Port of the helpers of `graphite_tpu/memory/engine.py`: sharer-bitvector
 ops (`:92-127`, `:170`), the packed directory-entry fields (`:150-168`),
 the earliest-message elections (`:178-224`), the zero-load MEMORY-network
-latency (`:227-249`, magic and emesh_hop_counter), the line-utilization
+latency (`:227-249`), the line-utilization
 and miss-type words (`:386-474`), the slot decomposition of a record
 (`:602-628`) and the per-call timing constants of `memory_engine_step`
 (`:1323-1360`).
@@ -179,11 +179,16 @@ def req_earliest(mail):
 
 def mem_net_latency_ps(mp: MemParams, src, dst, bits, enabled):
     """`network_model_emesh_hop_counter.cc` zero-load latency plus receive
-    serialization, or one cycle (magic); 0 while models are disabled."""
+    serialization, one cycle (magic), or the ATAC zero-load path costs
+    under `memory = atac`; 0 while models are disabled."""
     if mp.net_kind == "magic":
         cycles = torch.where(enabled, torch.ones_like(src, dtype=torch.int64),
                              0)
         return cycles_to_ps(cycles, mp.net_freq_mhz)
+    if mp.net_atac is not None:
+        from graphite_tpu_torch.models.network_atac import atac_zeroload_ps
+
+        return atac_zeroload_ps(mp.net_atac, src, dst, bits, enabled)
     w = mp.mesh_width
     src = src.to(torch.int64)
     dst = dst.to(torch.int64)

@@ -2,9 +2,11 @@
 
 Port of `graphite_tpu/memory/engine.py` `memory_engine_step`
 (`:1312-1845`) for `pr_l1_pr_l2_dram_directory_msi` with a `full_map`
-directory and the magic or emesh_hop_counter MEMORY network.  One call
-advances every tile's memory machinery by one subquantum iteration, in
-six phases, each reading what the phase before it wrote:
+directory over any MEMORY network: magic or emesh_hop_counter (zero-load),
+emesh_hop_by_hop or atac (every coherence message routed through the
+net's own queues, `MemState.noc`; memory/net.py).  One call advances
+every tile's memory machinery by one subquantum iteration, in six
+phases, each reading what the phase before it wrote:
 
     1 requester slot starts   kernel `mem_requester`       (:1378-1688)
     2 home evictions          PyTorch `home_evictions`     (:2006-2078)
@@ -14,7 +16,9 @@ six phases, each reading what the phase before it wrote:
     6 requester fills         kernel `mem_requester_fill`  (:2547-2712)
 
 On the card the PyTorch phases run as CUDA graphs of themselves
-(`PhaseGraphs`).
+(`PhaseGraphs`); under a contention net the graph of phases 4-5 holds
+two launches of the `mem_net_route` kernel (the acks, the replies), and
+the three kernels route their own message sets.
 
 Directory writes go to the store in place.  The JAX engine's working-set
 gather, delta plans and staging (`:720-1310`) only rearrange the same
@@ -41,6 +45,7 @@ import weakref
 import torch
 
 from graphite_tpu_torch.memory import cache_array as ca
+from graphite_tpu_torch.memory import net
 from graphite_tpu_torch.memory.common import (
     clear_bit, dir_nsh, dir_owner, dir_state, gated, mt_update,
     next_present_slot, pack_bits, row_earliest, set_bit, slots_present,
@@ -166,7 +171,7 @@ def sharer_step(ctx: MemCtx, ms: MemState, cps, enabled, progress) -> None:
     # the ack to the home (INV acks are header-only; FLUSH/WB carry data)
     ack = torch.where(is_inv, MSG_INV_REP, torch.where(
         ftype == MSG_FLUSH_REQ, MSG_FLUSH_REP, MSG_WB_REP))
-    arrival = done_ps + ctx.net_ps(tiles, h, enabled, rep=~is_inv)
+    arrival = net.send(ctx, ms, tiles, h, ~is_inv, done_ps, serve, enabled)
     for arr, val in ((mail.ack_type, ack.to(torch.uint8)),
                      (mail.ack_line, fline), (mail.ack_time, arrival)):
         arr[h, tiles] = torch.where(serve, val, arr[h, tiles])
@@ -230,7 +235,7 @@ def home_acks_and_finish(ctx: MemCtx, ms: MemState, enabled,
     need_dram = finish & ~(txn.data_cached | cdata_hit) & ~is_nullify
     rep_ready = txn.time_ps + torch.where(need_dram, dram_lat, 0)
     rep_go = finish & ~is_nullify
-    arrival = rep_ready + ctx.net_ps(tiles, r, enabled, rep=True)
+    arrival = net.send(ctx, ms, tiles, r, True, rep_ready, rep_go, enabled)
     send_reply(mail, r, rep_go, torch.where(is_ex, MSG_EX_REP, MSG_SH_REP),
                arrival)
     # clear the home's FWD column: no stale multicast leaks onward
@@ -274,11 +279,18 @@ class PhaseGraphs:
     references).  The port never re-points a state tensor in place.
     Capture runs each phase once on a copy of the state first (loading
     every kernel the graph will hold); the capture itself computes
-    nothing, the replay does."""
+    nothing, the replay does.
+
+    A kernel launch recorded in a graph runs at each replay, not at
+    capture: `replay` adds each graph's recorded launches to the
+    kernels' counts (`ops.KERNELS`); `replays` counts the host's graph
+    launches and `captures` the states captured."""
 
     def __init__(self):
         self.refs = ()
         self.graphs = None
+        self.replays = 0
+        self.captures = 0
 
     def get(self, ctx, ms, enabled, freq, progress):
         objs = (ms, enabled, freq, progress)
@@ -294,10 +306,21 @@ class PhaseGraphs:
 
             self.graphs = (evict, _capture(ms, progress, sharer_acks))
             self.refs = tuple(map(weakref.ref, objs))
+            self.captures += 1
         return self.graphs
 
+    def replay(self, captured) -> None:
+        graph, launches = captured
+        graph.replay()
+        self.replays += 1
+        for k in launches:
+            k.launches += 1
 
-def _capture(ms, progress, fn) -> "torch.cuda.CUDAGraph":
+
+def _capture(ms, progress, fn) -> tuple:
+    """(graph, the kernels its capture recorded, one entry a launch)."""
+    from graphite_tpu_torch.ops import KERNELS
+
     cur = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(cur)
@@ -305,9 +328,14 @@ def _capture(ms, progress, fn) -> "torch.cuda.CUDAGraph":
         fn(ms.clone(), progress.clone())
     cur.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    before = {k: k.launches for k in KERNELS.values()}
     with torch.cuda.graph(graph):
         fn(ms, progress)
-    return graph
+    launches = []
+    for k, n in before.items():
+        launches += [k] * (k.launches - n)
+        k.launches = n           # recorded, not launched
+    return graph, tuple(launches)
 
 
 def memory_engine_step(ctx: MemCtx, ms: MemState, lanes, trace, core,
@@ -324,12 +352,13 @@ def memory_engine_step(ctx: MemCtx, ms: MemState, lanes, trace, core,
     predicate is false is skipped — the same result, in a fraction of
     the time."""
     if core.idx.device.type != "cpu":
-        evict, sharer_acks = ctx.phase_graphs.get(ctx, ms, enabled,
-                                                  core.freq_mhz, progress)
+        graphs = ctx.phase_graphs
+        evict, sharer_acks = graphs.get(ctx, ms, enabled, core.freq_mhz,
+                                        progress)
         mem_requester(ctx, ms, lanes, trace, core, enabled, progress)
-        evict.replay()
+        graphs.replay(evict)
         mem_home_start(ctx, ms, enabled, progress)
-        sharer_acks.replay()
+        graphs.replay(sharer_acks)
         mem_requester_fill(ctx, ms, lanes, trace, core, enabled, progress,
                            mem_ok)
         return

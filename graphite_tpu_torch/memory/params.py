@@ -5,9 +5,10 @@ nothing of the JAX package): cache geometries from `[l1_icache/<type>]`,
 `[l1_dcache/<type>]`, `[l2_cache/<type>]` with per-tile padding for
 heterogeneous `[tile] model_list` geometries, directory auto-sizing
 (`cache/directory_cache.cc:244-330`), DRAM timing, memory-controller
-placement and the DVFS synchronization delays.  The MEMORY network is
-the zero-load hop counter or magic; the hop-by-hop and ATAC memory nets
-raise NotImplementedError (ROADMAP.md queue 1, item 9).
+placement, the DVFS synchronization delays, and the MEMORY network: the
+zero-load hop counter or magic, or a contention model that every
+coherence message routes through (`net_hbh` under emesh_hop_by_hop,
+`net_atac` under atac).
 """
 
 from __future__ import annotations
@@ -217,7 +218,7 @@ class MemParams:
     dram_queue_type: str      # "disabled" | basic | history_list | ...
     mc_tiles: tuple           # tiles with memory controllers (home slices)
     # memory-network zero-load model (hop-counter math; contention separate)
-    net_kind: str             # magic | emesh_hop_counter
+    net_kind: str             # magic | emesh_hop_counter | atac
     net_freq_mhz: int
     mesh_width: int
     hop_latency_cycles: int
@@ -239,6 +240,11 @@ class MemParams:
     # shared-L2 engine's requester phase does not read it (its L1-only
     # hit path is already a single cheap lookup per iteration)
     requester_unroll: int = 1
+    # the MEMORY net's contention model: every coherence message routes
+    # through it (memory/net.py) — `memory = emesh_hop_by_hop` (per-port
+    # queues) or `memory = atac` (hub queues); None for the zero-load nets
+    net_hbh: "object | None" = None     # HopByHopParams
+    net_atac: "object | None" = None    # AtacParams
 
     @property
     def req_bits(self) -> int:
@@ -364,27 +370,36 @@ class MemParams:
         )
 
         # --- memory network params -----------------------------------------
-        # (the zero-load hop-counter / magic basis; the JAX package reads
-        # the NETWORK_USER domain frequency for it, kept as is)
+        # the zero-load basis as the JAX package reads it
+        # (`UserNetworkParams.from_config(sc, "memory")`: the NETWORK_USER
+        # domain frequency, the hop-counter math of the configured mesh
+        # section), then the contention model of emesh_hop_by_hop or atac
+        from graphite_tpu_torch.models.network_atac import AtacParams
+        from graphite_tpu_torch.models.network_hop_by_hop import (
+            HopByHopParams,
+        )
         from graphite_tpu_torch.models.network_user import (
             _network_domain_freq_mhz,
         )
 
         mem_kind = sc.network_types[1]
-        if mem_kind in ("emesh_hop_by_hop", "atac"):
-            raise NotImplementedError(
-                f"MEMORY network {mem_kind!r} is not ported to "
-                "graphite_tpu_torch yet (ROADMAP.md queue 1, item 9)")
-        if mem_kind not in ("magic", "emesh_hop_counter"):
+        if mem_kind not in ("magic", "emesh_hop_counter",
+                            "emesh_hop_by_hop", "atac"):
             raise ValueError(f"unsupported memory network model: {mem_kind}")
         net_freq = _network_domain_freq_mhz(sc)
-        mesh_w, hop_cycles, flit_bits = 0, 2, -1
-        if mem_kind == "emesh_hop_counter":
+        net_kind, mesh_w, hop_cycles, flit_bits = mem_kind, 0, 2, -1
+        net_hbh = net_atac = None
+        if mem_kind in ("emesh_hop_counter", "emesh_hop_by_hop"):
             section = f"network/{mem_kind}"
+            net_kind = "emesh_hop_counter"
             hop_cycles = (cfg.get_int(f"{section}/router/delay", 1)
                           + cfg.get_int(f"{section}/link/delay", 1))
             flit_bits = cfg.get_int(f"{section}/flit_width", 64)
             mesh_w, _ = mesh_dims(T)
+        if mem_kind == "emesh_hop_by_hop":
+            net_hbh = HopByHopParams.from_config(sc, "memory")
+        elif mem_kind == "atac":
+            net_atac = AtacParams.from_config(sc, "memory")
 
         # --- DVFS domains for synchronization delay ------------------------
         from graphite_tpu_torch.models.dvfs import (
@@ -425,7 +440,7 @@ class MemParams:
             dram_processing_ns=dram_processing_ns,
             dram_queue_type=dram_queue_type,
             mc_tiles=mc_tiles,
-            net_kind=mem_kind,
+            net_kind=net_kind,
             net_freq_mhz=net_freq,
             mesh_width=mesh_w,
             hop_latency_cycles=hop_cycles,
@@ -435,6 +450,8 @@ class MemParams:
             icache_modeling=cfg.get_bool("general/enable_icache_modeling", False),
             func_mem_words=cfg.get_int("general/functional_memory_kb", 256) * 256,
             requester_unroll=requester_unroll,
+            net_hbh=net_hbh,
+            net_atac=net_atac,
         )
 
     def sync_cycles(self, module_a: int, module_b: int) -> int:

@@ -14,11 +14,11 @@ uint32 `>>` or `+` worth trusting, so
    functional word store (`mt`, `l2_util`, `func_mem`) hold each word
    zero-extended to int64, masked to 32 bits wherever it is written.
 
-The JAX package's directory staging rows (`skey`/`sval`/`sn`), the
-per-phase skip counters and the hop-by-hop NoC state have no counterpart:
-the port writes the directory in place (the staging is bit-exact by
-construction, so leaving it out changes no result), and the hop-by-hop
-memory net is not ported (ROADMAP.md queue 1, item 9).  Mailbox layout and
+The JAX package's directory staging rows (`skey`/`sval`/`sn`) and the
+per-phase skip counters have no counterpart: the port writes the
+directory in place (the staging is bit-exact by construction, so leaving
+it out changes no result).  `noc` is the MEMORY net's contention state
+(`NocState` or `AtacState`, as in the JAX package).  Mailbox layout and
 ownership are as in the JAX package (see its module docstring).
 """
 
@@ -195,6 +195,9 @@ class MemState(_TensorTree):
     func_mem: torch.Tensor       # int64[mem_words + 1] uint32 words
     func_errors: torch.Tensor    # int64[]
     mt: "torch.Tensor | None" = None  # int64[T, 3, MT_WORDS] (tracking on)
+    # the MEMORY net's contention state: a NocState (per-port queues)
+    # under emesh_hop_by_hop, an AtacState (hub queues) under atac
+    noc: "object | None" = None
 
 
 def make_cache(n_tiles: int, num_sets: int, num_ways: int,
@@ -264,4 +267,21 @@ def init_mem_state(mp: MemParams, device) -> MemState:
         func_mem=z(max(mp.func_mem_words, 1) + 1),
         func_errors=z(()),
         mt=(z((T, 3, MT_WORDS)) if mp.l2.track_miss_types else None),
+        noc=_init_noc(mp, device),
     )
+
+
+def _init_noc(mp: MemParams, device):
+    """The MEMORY net's own queue state (`graphite_tpu/engine/
+    simulator.py:710-730`), or None for a zero-load net."""
+    if mp.net_hbh is not None:
+        from graphite_tpu_torch.models.network_hop_by_hop import (
+            init_noc_state,
+        )
+
+        return init_noc_state(mp.net_hbh, device)
+    if mp.net_atac is not None:
+        from graphite_tpu_torch.models.network_atac import init_atac_state
+
+        return init_atac_state(mp.net_atac, device)
+    return None

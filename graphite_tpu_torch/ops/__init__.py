@@ -15,6 +15,7 @@
 | `mem_home_start`     | memory/engine.py `_home_starts` :2219-2546       |
 | `mem_requester_fill` | memory/engine.py `_requester_fill` :2547-2712    |
 | `iocoom_commit`      | models/iocoom.py `iocoom_commit` :129-330        |
+| `mem_net_route`      | memory/engine.py `mem_net_send` :251-277 (phases 4-5) |
 
 Each wrapper runs its `*_plain` PyTorch version for CPU tensors and
 launches its kernel (`csrc/<name>.cu`) for CUDA tensors, or raises; it
@@ -31,6 +32,7 @@ from graphite_tpu_torch.ops import (
     lane_commit as _lane_commit,
     lane_fetch_cost as _lane_fetch_cost,
     mem_home_start as _mem_home_start,
+    mem_net_route as _mem_net_route,
     mem_requester as _mem_requester,
     mem_requester_fill as _mem_requester_fill,
     noc_route as _noc_route,
@@ -48,6 +50,9 @@ from graphite_tpu_torch.ops.lane_fetch_cost import (
 from graphite_tpu_torch.ops.mem_home_start import (
     mem_home_start, mem_home_start_plain,
 )
+from graphite_tpu_torch.ops.mem_net_route import (
+    mem_net_route, mem_net_route_plain,
+)
 from graphite_tpu_torch.ops.mem_requester import (
     mem_requester, mem_requester_plain,
 )
@@ -61,7 +66,7 @@ KERNELS = {
     m.KERNEL.name: m.KERNEL
     for m in (_lane_fetch_cost, _user_mailbox, _barrier_sync, _lane_commit,
               _mem_requester, _mem_home_start, _mem_requester_fill,
-              _iocoom_commit, _noc_route, _atac_route)
+              _iocoom_commit, _noc_route, _atac_route, _mem_net_route)
 }
 
 
@@ -84,7 +89,8 @@ __all__ = [
     "KERNELS", "atac_route", "atac_route_plain", "barrier_sync", "barrier_sync_plain", "iocoom_commit",
     "iocoom_commit_plain", "lane_commit", "lane_commit_plain",
     "lane_fetch_cost", "lane_fetch_cost_plain", "launch_counts",
-    "mem_home_start", "mem_home_start_plain", "mem_requester",
+    "mem_home_start", "mem_home_start_plain", "mem_net_route",
+    "mem_net_route_plain", "mem_requester",
     "mem_requester_fill", "mem_requester_fill_plain", "mem_requester_plain",
     "noc_route", "noc_route_plain", "pack_counts", "reset_launch_counts", "user_mailbox",
     "user_mailbox_plain",

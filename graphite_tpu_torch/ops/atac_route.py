@@ -21,7 +21,7 @@ from graphite_tpu_torch.models.network_atac import (
     AtacParams, AtacState, route_atac_plain,
 )
 from graphite_tpu_torch.models.queue_models import N_COLS
-from graphite_tpu_torch.ops.build import Kernel, pack_args
+from graphite_tpu_torch.ops.build import Kernel, check_width, pack_args
 from graphite_tpu_torch.ops.noc_route import _lane_packets
 from graphite_tpu_torch.time_types import cycles_to_ps
 
@@ -33,8 +33,7 @@ def _pack(tensors: tuple, key: tuple):
     csrc/atac_route.cu)."""
     (p,) = key
     T = tensors[0].shape[0]
-    if T > MAX_LANES:
-        raise ValueError(f"atac_route: {T} lanes, at most {MAX_LANES}")
+    check_width("atac_route", T, MAX_LANES, "lanes")
     i64, i32, b = torch.int64, torch.int32, torch.bool
     t = (T,)
     specs = [("lanes.op", i32, t), ("lanes.aux0", i32, t),

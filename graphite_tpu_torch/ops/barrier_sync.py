@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from graphite_tpu_torch.engine.state import GEN_RING, Lanes, SyncState
-from graphite_tpu_torch.ops.build import Kernel, pack_args
+from graphite_tpu_torch.ops.build import Kernel, check_width, pack_args
 from graphite_tpu_torch.trace.schema import Op
 
 BIG = 2**62
@@ -44,9 +44,7 @@ def _pack(tensors: tuple, key: tuple):
         raise ValueError(f"barrier_sync: unexpected key {key}")
     T = tensors[0].shape[0]
     NB = tensors[6].shape[0]
-    if NB > MAX_BARRIERS:
-        raise ValueError(f"barrier_sync: {NB} barriers, at most "
-                         f"{MAX_BARRIERS}")
+    check_width("barrier_sync", NB, MAX_BARRIERS, "barriers")
     i32, i64, b = torch.int32, torch.int64, torch.bool
     t, nb = (T,), (NB,)
     specs = (("lanes.op", i32, t), ("lanes.aux0", i32, t),

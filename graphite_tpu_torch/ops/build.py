@@ -63,7 +63,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_NAMES = ("lane_fetch_cost", "user_mailbox", "barrier_sync",
                 "lane_commit", "mem_requester", "mem_home_start",
                 "mem_requester_fill", "iocoom_commit", "noc_route",
-                "atac_route")
+                "atac_route", "mem_net_route")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -74,7 +74,7 @@ BUILD_LOGS: dict = {}
 def _source_hash(name: str) -> str:
     h = hashlib.sha256()
     for fn in (f"{name}.cu", "common.cuh", "mem_common.cuh",
-               "queue_common.cuh"):
+               "queue_common.cuh", "net_route.cuh"):
         with open(os.path.join(CSRC_DIR, fn), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -221,6 +221,13 @@ class Kernel:
         if rc != 0:
             self._raise(rc)
         self.launches += 1
+
+
+def check_width(name: str, n: int, limit: int, what: str) -> None:
+    """A one-CTA kernel's refusal of a width past its block (its
+    wrapper's, and `Simulator`'s at construction on a card)."""
+    if n > limit:
+        raise ValueError(f"{name}: {n} {what}, at most {limit}")
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device) -> int:

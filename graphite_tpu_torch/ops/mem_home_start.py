@@ -28,12 +28,14 @@ from __future__ import annotations
 import torch
 
 from graphite_tpu_torch.intmath import nn_mod
+from graphite_tpu_torch.memory import net
 from graphite_tpu_torch.memory.common import (
     dir_nsh, dir_owner, dir_state, dir_tag, dir_word, gated, popcount,
     req_earliest, set_bit, test_bit, unpack_sharers,
 )
 from graphite_tpu_torch.memory.context import MemCtx
-from graphite_tpu_torch.ops.build import Kernel, pack_args
+from graphite_tpu_torch.ops.build import Kernel
+from graphite_tpu_torch.ops.mem_net_route import net_tensors, pack_with_net
 from graphite_tpu_torch.memory.state import (
     DIR_MODIFIED, DIR_SHARED, DIR_UNCACHED, MSG_EX_REP, MSG_EX_REQ,
     MSG_FLUSH_REQ, MSG_INV_REQ, MSG_NONE, MSG_NULLIFY, MSG_SH_REP,
@@ -74,7 +76,8 @@ def _pack(tensors: tuple, key: tuple):
               ("counters.dir_accesses", i64, t),
               ("counters.dram_reads", i64, t),
               ("counters.dram_total_lat_ps", i64, t)]
-    return pack_args(tensors, specs, (0,) + engine_values(ctx))
+    return pack_with_net(tensors, specs, (0,) + engine_values(ctx),
+                         mp.net_hbh, mp.net_atac, T)
 
 
 KERNEL = Kernel("mem_home_start", "gt_mem_home_start", pack=_pack)
@@ -88,7 +91,7 @@ def bound_args(ctx: MemCtx, ms: MemState, enabled, progress) -> tuple:
              mail.rep_type, mail.rep_time, mail.fwd_type, mail.fwd_line,
              mail.fwd_time, *(getattr(txn, n) for n, _ in _TXN),
              txn.pending, cnt.dir_accesses, cnt.dram_reads,
-             cnt.dram_total_lat_ps), (ctx,))
+             cnt.dram_total_lat_ps, *net_tensors(ctx.mp, ms.noc)), (ctx,))
 
 
 def dir_view(ms: MemState, line, rows):
@@ -229,7 +232,8 @@ def mem_home_start_plain(ctx: MemCtx, ms: MemState, enabled,
     cdata_imm = txn.cdata_valid & (txn.cdata_line == eff_line) & imm
     rep_ready = eff_time + torch.where(cdata_imm, 0, dram_lat)
     txn.cdata_valid.copy_(txn.cdata_valid & ~cdata_imm)
-    arrival = rep_ready + ctx.net_ps(tiles, rreq, enabled, rep=True)
+    arrival = net.send(ctx, ms, tiles, rreq, True, rep_ready, imm, enabled,
+                       plain=True)
     send_reply(mail, rreq, imm, torch.where(imm_ex, MSG_EX_REP, MSG_SH_REP),
                arrival)
     txn.last_line.copy_(torch.where(imm, eff_line, txn.last_line))
@@ -255,9 +259,11 @@ def mem_home_start_plain(ctx: MemCtx, ms: MemState, enabled,
     txn.pending.copy_(torch.where(fan[:, None], pending, txn.pending))
     txn.data_cached.copy_(txn.data_cached & ~fan)
 
-    # the multicast into the FWD matrix [sharer, home]
-    send_t = (fan[:, None] & unpack_sharers(pending, T)).T
-    arrive = eff_time[None, :] + torch.where(enabled, ctx.lat[False].T, 0)
+    # the multicast into the FWD matrix [sharer, home], against the
+    # queues the replies committed
+    send_hs = fan[:, None] & unpack_sharers(pending, T)
+    send_t = send_hs.T
+    arrive = net.fanout(ctx, ms, send_hs, eff_time, enabled).T
     mail.fwd_type.copy_(torch.where(send_t, fwd_msg[None, :].to(torch.uint8),
                                     mail.fwd_type))
     mail.fwd_line.copy_(torch.where(send_t, eff_line[None, :],

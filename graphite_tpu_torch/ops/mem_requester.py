@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from graphite_tpu_torch.memory import cache_array as ca
+from graphite_tpu_torch.memory import net
 from graphite_tpu_torch.memory.common import (
     U32, arange, ccycles, mt_test, mt_update, next_present_slot,
     slots_present, util_classify, util_inc,
@@ -41,7 +42,10 @@ from graphite_tpu_torch.memory.state import (
     MSG_SH_REQ, MT_EVICTED, MT_FETCHED, MT_INVALIDATED, MT_WORDS, PHASE_IDLE,
     PHASE_WAIT_REPLY, MemState,
 )
-from graphite_tpu_torch.ops.build import Kernel, pack_args
+from graphite_tpu_torch.ops.build import Kernel, check_width
+from graphite_tpu_torch.ops.mem_net_route import (
+    net_kind, net_tensors, pack_with_net,
+)
 from graphite_tpu_torch.trace.schema import (
     FLAG_CHECK, FLAG_MEM0_WRITE, FLAG_MEM1_WRITE,
 )
@@ -49,7 +53,6 @@ from graphite_tpu_torch.trace.schema import (
 
 # the kernel holds a lane a thread in one CTA
 MAX_TILES = 1024
-_NET_KIND = {"magic": 0, "emesh_hop_counter": 1}
 _COUNTERS = ("l1i_hits", "l1i_misses", "l1d_read_hits", "l1d_read_misses",
              "l1d_write_hits", "l1d_write_misses", "l2_hits", "l2_misses",
              "l2_cold_misses", "l2_capacity_misses", "l2_sharing_misses",
@@ -70,7 +73,7 @@ def engine_values(ctx: MemCtx) -> tuple:
             int(mp.l1d.replacement == "round_robin"),
             int(mp.l2.replacement == "round_robin"),
             int(mp.l2.track_miss_types), int(mp.l2.track_line_utilization),
-            _NET_KIND[mp.net_kind], mp.net_freq_mhz, mp.mesh_width,
+            net_kind(mp), mp.net_freq_mhz, mp.mesh_width,
             mp.hop_latency_cycles, mp.flit_width_bits, mp.req_bits,
             mp.rep_bits, len(mp.mc_tiles), mp.l1i.num_sets, mp.l1i.num_ways,
             mp.l1d.num_sets, mp.l1d.num_ways, mp.l2.num_sets,
@@ -104,8 +107,7 @@ def _pack(tensors: tuple, key: tuple):
     ctx, L = key[0], key[1]
     mp = ctx.mp
     T = mp.n_tiles
-    if T > MAX_TILES:
-        raise ValueError(f"mem_requester: {T} tiles, at most {MAX_TILES}")
+    check_width("mem_requester", T, MAX_TILES, "tiles")
     i64, i32, b, u8 = torch.int64, torch.int32, torch.bool, torch.uint8
     t = (T,)
     specs = [("lanes.op", i32, t), ("lanes.flags", i32, t),
@@ -127,7 +129,8 @@ def _pack(tensors: tuple, key: tuple):
               for n in _COUNTERS]
     specs += [("func_mem", i64, (max(mp.func_mem_words, 1) + 1,)),
               ("func_errors", i64, ())]
-    return pack_args(tensors, specs, (L,) + engine_values(ctx))
+    return pack_with_net(tensors, specs, (L,) + engine_values(ctx),
+                         mp.net_hbh, mp.net_atac, T)
 
 
 KERNEL = Kernel("mem_requester", "gt_mem_requester", pack=_pack)
@@ -144,7 +147,8 @@ def bound_args(ctx: MemCtx, ms: MemState, lanes, trace, core, enabled,
              mail.evict_type, mail.evict_line, mail.evict_time,
              *(getattr(req, n) for n, _ in _REQ), req.slot_lat_ps,
              *(getattr(cnt, n) for n in _COUNTERS), ms.func_mem,
-             ms.func_errors), (ctx, trace.addr0.shape[1]))
+             ms.func_errors, *net_tensors(ctx.mp, ms.noc)),
+            (ctx, trace.addr0.shape[1]))
 
 
 def apply_functional(ctx: MemCtx, ms: MemState, rec: MemRec, slot, s_addr,
@@ -290,21 +294,24 @@ def requester_once(ctx: MemCtx, ms: MemState, rec: MemRec, clock, fmhz,
     ca.scatter_row(ms.l1d.meta, l1d_row)
     ca.scatter_row(ms.l2.meta, l2_row)
 
-    # upgrade: the L2 copy's eviction message to its home
+    # upgrade: the L2 copy's eviction message to its home; then the
+    # request, through the queues the evictions committed
     up_msg = torch.where(upgrade_dirty, MSG_FLUSH_REP, MSG_INV_REP)
-    net = ctx.net_ps(tiles, s_home, enabled)
+    up_arr = net.send(ctx, ms, tiles, s_home, False, req_send_ps, up_go,
+                      enabled, plain=True)
     for arr, val in ((mail.evict_type, up_msg.to(torch.uint8)),
                      (mail.evict_line, s_line),
-                     (mail.evict_time, req_send_ps + net)):
+                     (mail.evict_time, up_arr)):
         arr[s_home, tiles] = torch.where(up_go, val, arr[s_home, tiles])
+    rq_arr = net.send(ctx, ms, tiles, s_home, False, req_send_ps,
+                      l2_miss_go, enabled, plain=True)
     # the request, in the requester's own cells
     rq_type = torch.where(s_write, MSG_EX_REQ, MSG_SH_REQ).to(torch.uint8)
     mail.req_type.copy_(torch.where(l2_miss_go, rq_type, mail.req_type))
     mail.req_home.copy_(torch.where(l2_miss_go, s_home.to(torch.int32),
                                     mail.req_home))
     mail.req_line.copy_(torch.where(l2_miss_go, s_line, mail.req_line))
-    mail.req_time.copy_(torch.where(l2_miss_go, req_send_ps + net,
-                                    mail.req_time))
+    mail.req_time.copy_(torch.where(l2_miss_go, rq_arr, mail.req_time))
 
     slot_done_now = ibuf_hit | l1_hit_now | l2_hit_now
     slot_done_ps = torch.where(

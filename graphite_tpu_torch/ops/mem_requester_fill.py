@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from graphite_tpu_torch.memory import cache_array as ca
+from graphite_tpu_torch.memory import net
 from graphite_tpu_torch.memory.common import (
     mt_same_bucket, mt_test, mt_update, next_present_slot, slots_present,
     util_classify,
@@ -34,7 +35,8 @@ from graphite_tpu_torch.memory.state import (
     MT_EVICTED, MT_FETCHED, MT_INVALIDATED, PHASE_IDLE, PHASE_WAIT_REPLY,
     MemState,
 )
-from graphite_tpu_torch.ops.build import Kernel, pack_args
+from graphite_tpu_torch.ops.build import Kernel, check_width
+from graphite_tpu_torch.ops.mem_net_route import net_tensors, pack_with_net
 from graphite_tpu_torch.ops.mem_requester import (
     MAX_TILES, apply_functional, cache_specs, cache_tensors, engine_values,
 )
@@ -52,9 +54,7 @@ def _pack(tensors: tuple, key: tuple):
     ctx, L = key
     mp = ctx.mp
     T = mp.n_tiles
-    if T > MAX_TILES:
-        raise ValueError(f"mem_requester_fill: {T} tiles, at most "
-                         f"{MAX_TILES}")
+    check_width("mem_requester_fill", T, MAX_TILES, "tiles")
     i64, i32, b, u8 = torch.int64, torch.int32, torch.bool, torch.uint8
     t = (T,)
     specs = [("lanes.op", i32, t), ("lanes.flags", i32, t),
@@ -74,7 +74,8 @@ def _pack(tensors: tuple, key: tuple):
               for n in _COUNTERS]
     specs += [("func_mem", i64, (max(mp.func_mem_words, 1) + 1,)),
               ("func_errors", i64, ())]
-    return pack_args(tensors, specs, (L,) + engine_values(ctx))
+    return pack_with_net(tensors, specs, (L,) + engine_values(ctx),
+                         mp.net_hbh, mp.net_atac, T)
 
 
 KERNEL = Kernel("mem_requester_fill", "gt_mem_requester_fill", pack=_pack)
@@ -90,7 +91,8 @@ def bound_args(ctx: MemCtx, ms: MemState, lanes, trace, core, enabled,
              mail.evict_line, mail.evict_time, mail.rep_type, mail.rep_time,
              *(getattr(req, n) for n, _ in _REQ), req.slot_lat_ps,
              *(getattr(cnt, n) for n in _COUNTERS), ms.func_mem,
-             ms.func_errors), (ctx, trace.addr0.shape[1]))
+             ms.func_errors, *net_tensors(ctx.mp, ms.noc)),
+            (ctx, trace.addr0.shape[1]))
 
 
 def mem_requester_fill_plain(ctx: MemCtx, ms: MemState, rec: MemRec, clock,
@@ -147,7 +149,8 @@ def mem_requester_fill_plain(ctx: MemCtx, ms: MemState, rec: MemRec, clock,
                   + cps[:, CYC_L2_DAT])
     done_ps = fill_l2_ps + torch.where(comp_l1i, cps[:, CYC_L1I_DAT],
                                        cps[:, CYC_L1D_DAT])
-    e_arrival = fill_l2_ps + ctx.net_ps(tiles, v_home, enabled, rep=v_dirty)
+    e_arrival = net.send(ctx, ms, tiles, v_home, v_dirty, fill_l2_ps,
+                         evict_go, enabled, plain=True)
     for arr, val in ((mail.evict_type, e_msg), (mail.evict_line, v_line),
                      (mail.evict_time, e_arrival)):
         arr[v_home, tiles] = torch.where(evict_go, val, arr[v_home, tiles]

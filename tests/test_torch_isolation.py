@@ -154,17 +154,18 @@ def test_wrappers_refuse_other_devices():
     "stream", "telemetry", "profile", "hist", "dvfs_spec", "fft_memory"])
 def test_unsupported_configurations_raise(what):
     """Configurations outside the ported slices.  Since the memory slice,
-    "memory" is a trace with memory operands under the MOSI protocol,
-    "iocoom" the iocoom core with memory under an ackwise directory, and
-    "fft_memory" the FFT's loads over a hop-by-hop MEMORY network; since
-    the contention-NoC slice (the USER net under both), "hop_by_hop" and
-    "atac" are the FFT's loads with that net as the USER and the MEMORY
-    net."""
+    "memory" is a trace with memory operands under the MOSI protocol and
+    "iocoom" the iocoom core with memory under an ackwise directory; since
+    both contention nets serve as the MEMORY net, "fft_memory" is the
+    FFT's loads over a hop-by-hop MEMORY net under MOSI, and "hop_by_hop"
+    and "atac" the FFT's loads with that net as the USER and the MEMORY
+    net under MOSI."""
     tb = fft_trace(16, points_per_tile=16)
     kw, sc = {}, cfg()
-    item = {"memory": 8, "iocoom": 8, "hop_by_hop": 9, "atac": 9,
+    item = {"memory": 8, "iocoom": 8, "hop_by_hop": 8, "atac": 8,
             "lax_p2p": 4, "barrier_host": 4, "stream": 11, "telemetry": 12,
-            "profile": 12, "hist": 12, "dvfs_spec": 10, "fft_memory": 9}[what]
+            "profile": 12, "hist": 12, "dvfs_spec": 10, "fft_memory": 8}[what]
+    mosi = "[caching_protocol]\ntype = pr_l1_pr_l2_dram_directory_mosi\n"
     if what == "memory":
         tb.flags[0, 1] = FLAG_MEM0_VALID
         sc = cfg(extra="[caching_protocol]\n"
@@ -175,11 +176,11 @@ def test_unsupported_configurations_raise(what):
                  "[dram_directory]\ndirectory_type = ackwise")
     elif what == "fft_memory":
         tb = fft_trace(16, points_per_tile=16, use_memory=True)
-        sc = cfg(extra="[network]\nmemory = emesh_hop_by_hop")
+        sc = cfg(extra=mosi + "[network]\nmemory = emesh_hop_by_hop")
     elif what in ("hop_by_hop", "atac"):
         net = "emesh_hop_by_hop" if what == "hop_by_hop" else "atac"
         tb = fft_trace(16, points_per_tile=16, use_memory=True)
-        sc = cfg(user=net, extra=f"[network]\nmemory = {net}")
+        sc = cfg(user=net, extra=mosi + f"[network]\nmemory = {net}")
     elif what == "lax_p2p":
         sc = cfg(scheme="lax_p2p")
     elif what == "barrier_host":

@@ -129,8 +129,13 @@ def test_out_of_slice_configurations_raise(what):
                  "type = pr_l1_pr_l2_dram_directory_mosi\n", 8),
         "shl2_msi": ("[caching_protocol]\ntype = pr_l1_sh_l2_msi\n", 8),
         "shl2_mesi": ("[caching_protocol]\ntype = pr_l1_sh_l2_mesi\n", 8),
-        "hop_by_hop_memory": ("[network]\nmemory = emesh_hop_by_hop\n", 9),
-        "atac_memory": ("[network]\nmemory = atac\n", 9),
+        # the contention MEMORY nets under MOSI (the nets are ported, the
+        # protocol is not)
+        "hop_by_hop_memory": ("[network]\nmemory = emesh_hop_by_hop\n"
+                              "[caching_protocol]\n"
+                              "type = pr_l1_pr_l2_dram_directory_mosi\n", 8),
+        "atac_memory": ("[network]\nmemory = atac\n[caching_protocol]\n"
+                        "type = pr_l1_pr_l2_dram_directory_mosi\n", 8),
     }.get(what, (f"[dram_directory]\ndirectory_type = {what}\n", 8))
     batch = t_syn.memory_stress_trace(4, n_accesses=5)
     sc = TSimConfig(TConfigFile.from_string(mem_text(4, extra=extra)))

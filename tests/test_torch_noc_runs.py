@@ -7,8 +7,8 @@ atac, `lax` and `lax_barrier`; the scenarios of tests/test_hop_by_hop.py
 uniform traffic) and of tests/test_atac.py (intra-cluster ENet,
 inter-cluster ONet, hub compounding, the 64-tile mesh); a JAX run handed
 to the port mid-way (`convert.py`); the port's `radix_trace` against the
-JAX builder at 256 tiles; the MEMORY-net configurations outside the
-slice.  Every SimResults field, the summary, `last_n_iterations` and the
+JAX builder at 256 tiles; the FFT with its loads under both nets as the
+USER and the MEMORY net.  Every SimResults field, the summary, `last_n_iterations` and the
 final USER-NoC queue state (`state.noc_user`, every leaf) are equal:
 zero tolerance.  Marker `cuda`: the two route kernels against their
 plain versions on a card (skipped without one).
@@ -292,25 +292,52 @@ def test_radix_trace_equal_at_256_tiles():
 @pytest.mark.parametrize("memory_net", NETS)
 @pytest.mark.parametrize("user_net", NETS)
 def test_contention_memory_net_raises(user_net, memory_net):
-    """A trace with memory records under either contention net as the
-    MEMORY net stays outside the slice (ROADMAP.md queue 1, item 9)."""
-    from graphite_tpu_torch.trace.benchmarks import fft_trace
+    """A trace with memory records under either contention net as the USER
+    and as the MEMORY net: the FFT with its loads runs equal to the JAX
+    package, the line census, the USER net's queues and the MEMORY net's
+    (`MemState.noc`) included.  The name is kept on purpose: these
+    configurations raised until the MEMORY net was ported, and the test
+    now pins that they run."""
+    from graphite_tpu.trace.benchmarks import fft_trace as j_fft
+
+    from test_torch_memory import run_both as mem_run_both
+    from test_torch_memory_net import assert_noc_equal as assert_mem_noc
 
     text = config_text(16, network=user_net, shared_mem=True,
                        clock_scheme="lax") + \
         f"[network]\nmemory = {memory_net}\n"
-    sc = TSimConfig(TConfigFile.from_string(text))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TSimulator(sc, fft_trace(16, points_per_tile=16, use_memory=True),
-                   device="cpu")
+    jr, tr, js, ts = mem_run_both(text, j_fft(16, 16, use_memory=True))
+    assert_noc_equal(js, ts)
+    assert assert_mem_noc(js, ts)[:, 6].sum() > 0      # COL_REQS
+    assert int(tr.mem_counters["l2_misses"].sum()) > 0
 
 
 def test_memory_noc_state_conversion_raises():
-    from graphite_tpu_torch.convert import mem_state_from_arrays
+    """The MEMORY net's queues (`MemState.noc`) of a JAX state convert to
+    the port and back, under both nets.  The name is kept on purpose: the
+    conversion raised until the MEMORY net was ported, and the test now
+    pins the round trip."""
+    from graphite_tpu.trace.benchmarks import fft_trace as j_fft
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        mem_state_from_arrays({"directory": {}, "noc": {"queues": 0}},
-                              "cpu")
+    for net in NETS:
+        text = config_text(16, shared_mem=True, clock_scheme="lax") + \
+            f"[network]\nmemory = {net}\n"
+        js = JSimulator(JSimConfig(JConfigFile.from_string(text)),
+                        j_fft(16, 16, use_memory=True))
+        host = jax.device_get(js.state)
+        rng = np.random.default_rng(5)
+        name = "queues" if net == NETS[0] else "hub_queues"
+        q = getattr(host.mem.noc, name)
+        host = host.replace(mem=host.mem.replace(noc=host.mem.noc.replace(
+            **{name: q.replace(data=rng.integers(
+                0, 10**6, q.data.shape).astype(np.int64))})))
+        port = state_from_arrays(host, "cpu")
+        back = state_to_arrays(port)["mem"]["noc"][name]
+        for leaf in ("data", "mavg_buf", "mavg_pos", "mavg_cnt"):
+            a = np.asarray(getattr(getattr(host.mem.noc, name), leaf))
+            assert a.dtype == back[leaf].dtype, leaf
+            np.testing.assert_array_equal(a, back[leaf], err_msg=leaf)
+        assert int(back["data"].sum()) > 0
 
 
 @pytest.mark.cuda
