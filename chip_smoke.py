@@ -8,7 +8,8 @@ toolkit; builds the kernels from `graphite_tpu_torch/csrc/` at first use.
 Phases, one JSON line each:
 
  1. device: the card, its power limit, torch/CUDA versions;
- 2. build: the eleven kernels, one `nvcc` each, in parallel, and what
+ 2. build: the eleven kernel libraries (twelve kernels: lane_fetch_cost
+    has a lax_p2p entry point), one `nvcc` each, in parallel, and what
     `-Xptxas -v` says of each (registers, spills);
  3. kernels: each kernel against its plain PyTorch version on the card,
     `torch.equal` on every output and every state tensor it updates —
@@ -94,14 +95,43 @@ The contention NoCs as the MEMORY net (emesh_hop_by_hop and ATAC):
     then its hop-by-hop rung (emesh_hop_by_hop as the USER and the
     MEMORY net) once to completion.
 
-Then the kernels line (all eleven), the card's name and power limit,
-and last `{"ok": true, "device": {...}}`.  Any failure exits non-zero
-before the last line.  Each phase's line carries `t_s`, the script's
-seconds so far.  Imports nothing of JAX or of the JAX package.  To
-compare two trees on one card, run each tree's own copy of this script
+The outputs slice (lax_p2p, barrier_host, the generators, the outputs):
+16. p2p kernel: the 1024-tile FFT under lax_p2p at a 10 ns slack, its
+    kernels (the lax_p2p instantiation of `lane_fetch_cost`, counted as
+    `lane_fetch_cost[p2p]`) against their plain versions on P2P_CHECKED
+    iterations from the first receive (the sends before it hold no
+    lane), the held lanes counted; the four kernels timed at a send
+    state and at a receive state with held lanes;
+17. p2p edge states, each with the count that shows its branch: a
+    partner fetching THREAD_EXIT on this very iteration, 1, 2, 37 and
+    1,000 tiles, the round counter at 2**31 - 1 and its wrap, every lane
+    but one laggard ahead, models disabled;
+18. card against CPU: the 64-tile FFT and the two-tile skew trace under
+    lax_p2p, a 16-tile MSI stress run under lax_p2p, and a 64-tile
+    lax_barrier FFT with barrier_host=True, barrier_batch=3;
+19. the headline under lax_p2p (default slack) timed: P2P_RUNS runs in
+    turns with as many lax runs, the p2p kernel and the other three once
+    an iteration, results equal to the lax headline's; then one timed
+    run to completion at a 10 ns slack, where lanes are held;
+20. workloads: blackscholes (1,024 tiles, the headline config) and
+    canneal (1,024 tiles, MSI full_map, lax_barrier) once each; ping-pong
+    (`config_text(16)`) and every other BENCHMARKS entry at 64 tiles,
+    card against CPU;
+21. outputs: sim.out and carbon_sim.cfg of a 64-tile MSI run, card
+    against CPU byte for byte; a checkpoint saved mid-run on the card
+    and resumed on the card, equal to the uninterrupted run; the chunked
+    StatisticsManager's files, card against CPU byte for byte.
+
+Then the kernels line (the eleven and `lane_fetch_cost[p2p]`), the
+card's name and power limit, and last `{"ok": true, "device": {...}}`.
+Any failure exits non-zero before the last line.  Each phase's line
+carries `t_s`, the script's seconds so far, and `phase_s`, the seconds
+since the line before it.  Imports nothing of JAX or of the JAX package.
+To compare two trees on one card, run each tree's own copy of this script
 in one call (parent, change, change, parent); `python3 chip_smoke.py
---ab companion|north_star TREE [TREE ...]` times the companion or the
-north star alone with the package of each tree, in turns (A B B A).
+--ab headline|companion|north_star TREE [TREE ...]` times the headline,
+the companion or the north star alone with the package of each tree,
+in turns (A B B A).
 """
 
 from __future__ import annotations
@@ -131,9 +161,12 @@ REPLACES = {
     "noc_route": "graphite_tpu/models/network_hop_by_hop.py:123",
     "atac_route": "graphite_tpu/models/network_atac.py:176",
     "mem_net_route": "graphite_tpu/memory/engine.py:251",
+    "lane_fetch_cost[p2p]": "graphite_tpu/engine/step.py:253",
 }
 # the headline's kernels (the memory slice's are MEM_KERNELS)
 KERNEL_ORDER = tuple(REPLACES)[:4]
+# lane_fetch_cost's lax_p2p instantiation, counted apart
+P2P_KERNEL = "lane_fetch_cost[p2p]"
 TIMING_AT = {"send_phase": 200, "receive_phase": 1060}
 RUNS = 5
 
@@ -170,13 +203,16 @@ quantum = 1000
 
 
 T0 = time.perf_counter()
+_last_phase_t = [T0]
 
 
 def emit(obj) -> None:
     """One JSON line; a phase's line carries `t_s`, the script's seconds
-    so far."""
+    so far, and `phase_s`, the seconds since the phase line before it."""
     if "phase" in obj:
-        obj = {**obj, "t_s": time.perf_counter() - T0}
+        now = time.perf_counter()
+        obj = {**obj, "t_s": now - T0, "phase_s": now - _last_phase_t[0]}
+        _last_phase_t[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -251,12 +287,14 @@ class Ctx:
 
 def unit_args(name, ctx, st, ln):
     p = ctx.params
+    p2p_round = None if p.p2p_slack_ps is None else st.p2p_round
     if name == "lane_fetch_cost":
         return ((ctx.trace, st.core, st.done, st.models_enabled, ctx.qend,
                  ctx.cost_table),
                 dict(bp_enabled=p.bp_enabled,
                      bp_penalty=p.bp_mispredict_penalty,
-                     syscall_rt_ps=p.syscall_rt_ps, lanes=ln))
+                     syscall_rt_ps=p.syscall_rt_ps, lanes=ln,
+                     p2p_slack_ps=p.p2p_slack_ps, p2p_round=p2p_round))
     if name == "user_mailbox":
         return (p.net, ln, st.core.clock_ps, st.models_enabled, st.net), {}
     if name == "noc_route":
@@ -275,8 +313,16 @@ def unit_args(name, ctx, st, ln):
                 dict(n_follow=p.n_follow(ctx.trace.length),
                      req=None if st.mem is None else st.mem.req,
                      ioc_tile=(None if ctx.models is None
-                               else ctx.models.ioc_tile)))
+                               else ctx.models.ioc_tile),
+                     p2p_round=p2p_round))
     raise KeyError(name)
+
+
+def stat_key(name, params) -> str:
+    """The kernel a unit launches: `lane_fetch_cost[p2p]` under lax_p2p."""
+    if name == "lane_fetch_cost" and params.p2p_slack_ps is not None:
+        return P2P_KERNEL
+    return name
 
 
 def check_kernel(name, ctx, st, ln, stats) -> None:
@@ -290,10 +336,11 @@ def check_kernel(name, ctx, st, ln, stats) -> None:
     a, k = unit_args(name, ctx, st, ln)
     getattr(ops, name)(*a, **k)
     err = max_abs_err(_Pair(st, ln), _Pair(st2, ln2), name)
-    stats[name]["checks"] += 1
-    stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    key = stat_key(name, ctx.params)
+    stats[key]["checks"] += 1
+    stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
     if err:
-        raise AssertionError(f"{name}: kernel != plain version "
+        raise AssertionError(f"{key}: kernel != plain version "
                              f"(max abs err {err})")
 
 
@@ -863,6 +910,10 @@ def bound(name, sim, st, ln) -> tuple[float, str, int, int]:
         # op/flags/pc/aux0/aux1/dyn/bp_index/bp_pred/done/active/cost
         nbytes = T * (26 + 17 + 1 + 47) + 20 * 8 + 9
         ops = T * 40
+        if sim.params.p2p_slack_ps is not None:
+            # the partner's idx, clock, done and op, and the round counter
+            nbytes += T * (4 + 8 + 1 + 1) + 4
+            ops += T * 12
     elif name == "user_mailbox":
         sends = n(act & (op == int(Op.SEND)))
         recv = act & (op == int(Op.NET_RECV))
@@ -897,7 +948,7 @@ def time_kernels(sim, ctx, st, ln, names=KERNEL_ORDER) -> dict:
 
     out = {}
     for name in names:
-        kernel = ops.KERNELS[name]
+        kernel = ops.KERNELS[stat_key(name, ctx.params)]
         timers = [("ms", name, graph_ms),
                   ("call_ms", name, lambda f: time_ms(f, 200)),
                   ("plain_ms", name + "_plain", lambda f: time_ms(f, 20))]
@@ -936,12 +987,12 @@ def sim_qend(sim):
 
 # --- phases ---------------------------------------------------------------
 
-def make_sim(n_tiles, batch, device, scheme="lax", **kw):
+def make_sim(n_tiles, batch, device, scheme="lax", extra="", **kw):
     from graphite_tpu_torch.config import ConfigFile, SimConfig
     from graphite_tpu_torch.engine.simulator import Simulator
 
     sc = SimConfig(ConfigFile.from_string(
-        BENCH_CONFIG.format(n=n_tiles, scheme=scheme)))
+        BENCH_CONFIG.format(n=n_tiles, scheme=scheme) + extra))
     return Simulator(sc, batch, device=device, **kw)
 
 
@@ -1493,7 +1544,8 @@ def kernel_tensors(name, sim, ctx, st, ln) -> list:
     core, en = st.core, st.models_enabled
     if name == "lane_commit":
         a, k = unit_args(name, ctx, st, ln)
-        args = mod.bound_args(*a, k["n_follow"], k["req"], k["ioc_tile"])
+        args = mod.bound_args(*a, k["n_follow"], k["req"], k["ioc_tile"],
+                              k["p2p_round"])
     elif name in NOC_KERNELS + ("user_mailbox",):
         args = mod.bound_args(*unit_args(name, ctx, st, ln)[0])
     elif name == "iocoom_commit":
@@ -1825,14 +1877,14 @@ NOC_KERNELS = ("noc_route", "atac_route")
 NOC_NETS = {"noc_route": "emesh_hop_by_hop", "atac_route": "atac"}
 RADIX_TILES = 256
 RADIX_KEYS = 1024
-RADIX_CHECKED = 300
+RADIX_CHECKED = 150         # its first all-to-all state is iteration 30
 RADIX_RUNS = 3
 
 
 def new_stats() -> dict:
     return {k: {"checks": 0, "max_abs_err": 0}
             for k in KERNEL_ORDER + MEM_KERNELS + NOC_KERNELS
-            + ("mem_net_route",)}
+            + ("mem_net_route", P2P_KERNEL)}
 
 
 def radix_sim(n_tiles, network, device, *, keys_per_tile=RADIX_KEYS,
@@ -2160,7 +2212,8 @@ def phase_radix(dev, name) -> tuple:
 
 MEM_NETS = ("emesh_hop_by_hop", "atac")
 NET_EXTRA = "[network]\nmemory = {net}\n"
-NET_CHECKED = 300           # of each routed companion's iterations
+NET_CHECKED = 150           # of each routed companion's iterations (its
+#                             first miss-heavy state is iteration 128)
 BIG_TILES = 1024            # the widest edge state
 
 
@@ -2775,6 +2828,511 @@ def phase_hbh_north_star(dev) -> dict:
             "launches": counts}
 
 
+# --- the outputs slice: lax_p2p, barrier_host, the generators, outputs ----
+
+P2P_SLACK = "[clock_skew_management/lax_p2p]\nslack = {ns}\n"
+# the 1024-tile FFT under lax_p2p at a 10 ns slack: its first 1,024
+# iterations are the all-to-all's sends, in which every tile does the same
+# work and no lane can be held; from the receives on ~250 lanes an
+# iteration are.  Checked: P2P_CHECKED iterations from P2P_FIRST.
+P2P_FIRST = 1024
+P2P_CHECKED = 300
+# the kernels timed at a send state and at a receive state with holds
+P2P_TIMING_AT = {"send_phase": 200, "receive_phase": P2P_FIRST + 100}
+P2P_RUNS = 3                # and as many lax runs, in turns
+P2P_EDGE_CONFIG = """
+[general]
+total_cores = {n}
+mode = lite
+max_frequency = 1.0
+[network]
+user = magic
+memory = magic
+[core/static_instruction_costs]
+ialu = 1
+imul = 100
+[clock_skew_management]
+scheme = lax_p2p
+[clock_skew_management/lax_p2p]
+slack = {slack_ns}
+"""
+
+
+def text_sim(text, batch, device, **kw):
+    from graphite_tpu_torch.config import ConfigFile, SimConfig
+    from graphite_tpu_torch.engine.simulator import Simulator
+
+    return Simulator(SimConfig(ConfigFile.from_string(text)), batch,
+                     device=device, **kw)
+
+
+def held_lanes(ln) -> int:
+    """Lanes the lax_p2p hold kept back this iteration (qend never binds
+    under lax_p2p: a lane not done and not active is held)."""
+    return int((~ln.done & ~ln.active).sum())
+
+
+def phase_p2p_kernel(dev, batch, stats) -> dict:
+    """The p2p `lane_fetch_cost` and `lane_commit` (and the mailbox and
+    barrier kernels) against their plain versions on each of P2P_CHECKED
+    iterations of the 1024-tile FFT under lax_p2p at a 10 ns slack from
+    iteration P2P_FIRST (the kernels alone run the iterations before),
+    counting the held lanes; the four kernels timed at the iterations of
+    P2P_TIMING_AT."""
+    import torch
+
+    from graphite_tpu_torch.engine.step import subquantum_iteration
+
+    sim = make_sim(1024, batch, dev, scheme="lax_p2p",
+                   extra=P2P_SLACK.format(ns=10), inner_block=64)
+    ctx = Ctx(sim.params, sim.device_trace, sim_qend(sim), sim._cost_table)
+    st, ln = sim.state, sim._lanes
+    at = {i: state for state, i in P2P_TIMING_AT.items()}
+    timings = {}
+    for i in range(P2P_FIRST):
+        if i in at:
+            timings[at[i]] = time_kernels(sim, ctx, st.clone(), ln.clone())
+        subquantum_iteration(sim.params, ctx.trace, st, ctx.qend, ln,
+                             ctx.cost_table)
+    held = []
+    t0 = time.perf_counter()
+    for i in range(P2P_FIRST, P2P_FIRST + P2P_CHECKED):
+        if i in at:
+            timings[at[i]] = time_kernels(sim, ctx, st.clone(), ln.clone())
+        checked_iteration(ctx, st, ln, stats)
+        held.append(held_lanes(ln))
+    torch.cuda.synchronize()
+    if sum(h > 0 for h in held) < P2P_CHECKED // 2:
+        raise AssertionError(f"p2p: lanes held in only "
+                             f"{sum(h > 0 for h in held)} iterations")
+    if int(st.p2p_round) != P2P_FIRST + P2P_CHECKED:
+        raise AssertionError(f"p2p: round {int(st.p2p_round)} after "
+                             f"{P2P_FIRST + P2P_CHECKED} iterations")
+    return {"tiles": 1024, "slack_ns": 10, "first_checked": P2P_FIRST,
+            "iterations_checked": P2P_CHECKED,
+            "checked_s": time.perf_counter() - t0,
+            "held_total": sum(held), "held_max": max(held),
+            "held_at_receive_state":
+                held[P2P_TIMING_AT["receive_phase"] - P2P_FIRST],
+            "iterations_with_held": sum(h > 0 for h in held),
+            "timings": timings}
+
+
+def ialu_rows(n_tiles, length):
+    """Each tile: `length` IALU records, then THREAD_EXIT."""
+    from graphite_tpu_torch.trace.schema import Op, TraceBatch, TraceBuilder
+
+    bs = [TraceBuilder() for _ in range(n_tiles)]
+    for b in bs:
+        for _ in range(length):
+            b.instr(Op.IALU)
+    return TraceBatch.from_builders(bs)
+
+
+def p2p_step(dev, stats, n, clocks, idx, done, rnd, enabled=True,
+             length=6) -> dict:
+    """One checked iteration of an n-tile IALU trace under lax_p2p (10 ns
+    slack) from a hand-set state; returns the pre-step state on the host,
+    the partners and the active mask."""
+    import torch
+
+    from graphite_tpu_torch.ops.lane_fetch_cost import p2p_partner
+
+    sim = text_sim(P2P_EDGE_CONFIG.format(n=n, slack_ns=10),
+                   ialu_rows(n, length), dev)
+    ctx = Ctx(sim.params, sim.device_trace, sim_qend(sim), sim._cost_table)
+    st, ln = sim.state, sim._lanes
+    st.core.clock_ps.copy_(torch.as_tensor(clocks, dtype=torch.int64))
+    st.core.idx.copy_(torch.as_tensor(idx, dtype=torch.int32))
+    st.done.copy_(torch.as_tensor(done, dtype=torch.bool))
+    st.p2p_round.fill_(rnd)
+    st.models_enabled.fill_(enabled)
+    pre = {"clock": st.core.clock_ps.cpu().numpy().copy(),
+           "idx": st.core.idx.cpu().numpy().copy(),
+           "done": st.done.cpu().numpy().copy(),
+           "partner": p2p_partner(st.p2p_round, n).cpu().numpy()}
+    checked_iteration(ctx, st, ln, stats)
+    pre["active"] = ln.active.cpu().numpy()
+    pre["held"] = held_lanes(ln)
+    pre["costed"] = int((ln.cost_ps != 0).sum())
+    pre["round_after"] = int(st.p2p_round)
+    pre["slack"] = sim.params.p2p_slack_ps
+    return pre
+
+
+def p2p_random(g, n, length=6):
+    """Clocks within a few slacks, a third of the lanes at THREAD_EXIT, a
+    fifth done."""
+    import numpy as np
+
+    idx = np.where(g.random(n) < 0.3, length, g.integers(0, length, n))
+    return g.integers(0, 50_000, n), idx, g.random(n) < 0.2
+
+
+def p2p_edge_cases(dev, stats) -> list:
+    """Hand-set states of the p2p hold, each checked kernel against plain
+    and printed with the count that shows its branch."""
+    import numpy as np
+
+    g = np.random.default_rng(7)
+    out = []
+    # partners that fetch THREAD_EXIT on this very iteration: a third of
+    # the lanes far ahead, a third behind at their exit record (free by
+    # this iteration's latch), a third behind and running (held)
+    n = 64
+    third = np.arange(n) % 3
+    clocks = np.where(third == 0, 10**6, 0)
+    idx = np.where(third == 1, 6, 0)
+    r = p2p_step(dev, stats, n, clocks, idx, np.zeros(n, bool), 12345)
+    p = r["partner"]
+    fresh = (r["idx"][p] == 6) & ~r["done"][p]
+    ahead = r["clock"] > r["clock"][p] + r["slack"]
+    free = int((ahead & fresh & r["active"]).sum())
+    out.append({"case": "partner_fetches_thread_exit", "free_by_latch": free,
+                "held": r["held"]})
+    if free == 0 or r["held"] == 0:
+        raise AssertionError(f"p2p edge: partner exit branch {out[-1]}")
+    # lane counts around the CTA of 64 lanes
+    for n in (1, 2, 37, 1000):
+        clocks, idx, done = p2p_random(g, n)
+        r = p2p_step(dev, stats, n, clocks, idx, done,
+                     int(g.integers(-2**31, 2**31)))
+        out.append({"case": f"tiles_{n}", "held": r["held"]})
+        if n > 2 and r["held"] == 0:
+            raise AssertionError(f"p2p edge: nothing held at {n} tiles")
+    # the round counter at the int32 edge and its wrap
+    clocks, idx, done = p2p_random(g, 64)
+    r = p2p_step(dev, stats, 64, clocks, idx, done, 2**31 - 1)
+    out.append({"case": "round_int32_max", "held": r["held"],
+                "round_after": r["round_after"]})
+    if r["round_after"] != -2**31:
+        raise AssertionError(f"p2p edge: round wrapped to {r['round_after']}")
+    # every lane but the laggard ahead: only the lanes whose partner is
+    # the laggard hold
+    n = 64
+    clocks = np.full(n, 10**6)
+    clocks[5] = 0
+    r = p2p_step(dev, stats, n, clocks, np.zeros(n, int), np.zeros(n, bool),
+                 99)
+    want = int((r["partner"] == 5).sum()) - int(r["partner"][5] == 5)
+    out.append({"case": "all_but_laggard_ahead", "held": r["held"],
+                "partners_of_laggard": want})
+    if not r["active"][5] or r["held"] != want or want == 0:
+        raise AssertionError(f"p2p edge: laggard case {out[-1]}")
+    # models disabled: no cost, the hold as with the models enabled
+    clocks, idx, done = p2p_random(g, 64)
+    on = p2p_step(dev, stats, 64, clocks, idx, done, 7)
+    r = p2p_step(dev, stats, 64, clocks, idx, done, 7, enabled=False)
+    out.append({"case": "models_disabled", "held": r["held"],
+                "costed": r["costed"], "costed_enabled": on["costed"]})
+    if (r["held"] == 0 or r["held"] != on["held"] or r["costed"]
+            or not on["costed"]):
+        raise AssertionError(f"p2p edge: models disabled case {out[-1]}")
+    return out
+
+
+SKEW_TEXT = P2P_EDGE_CONFIG.format(n=2, slack_ns=100)
+
+
+def skew_batch():
+    """tests/test_p2p.py's skew trace: tile 0 runs 1-cycle records, tile 1
+    100-cycle records."""
+    from graphite_tpu_torch.trace.schema import Op, TraceBatch, TraceBuilder
+
+    b0, b1 = TraceBuilder(), TraceBuilder()
+    for _ in range(400):
+        b0.instr(Op.IALU)
+        b1.instr(Op.IMUL)
+    return TraceBatch.from_builders([b0, b1])
+
+
+def p2p_e2e_cases() -> list:
+    """(name, builder(device) -> Simulator) of the card-vs-CPU runs."""
+    from graphite_tpu_torch.trace import synthetic
+    from graphite_tpu_torch.trace.benchmarks import fft_trace
+
+    slack = P2P_SLACK.format(ns=10)
+    stress = synthetic.memory_stress_trace(
+        16, n_accesses=40, working_set_bytes=1 << 13, write_fraction=0.4,
+        shared_fraction=0.5, seed=7)
+    fft64 = fft_trace(64)
+    return [
+        ("fft64_p2p", lambda d: make_sim(64, fft64, d, scheme="lax_p2p",
+                                         extra=slack, inner_block=32)),
+        ("skew2_p2p", lambda d: text_sim(SKEW_TEXT, skew_batch(), d)),
+        ("memstress16_p2p", lambda d: mem_sim(16, stress, d,
+                                              clock_scheme="lax_p2p",
+                                              extra=slack)),
+        ("fft64_barrier_host_batch3", lambda d: make_sim(
+            64, fft_trace(64, points_per_tile=64), d, scheme="lax_barrier",
+            inner_block=32, barrier_host=True, barrier_batch=3)),
+    ]
+
+
+def card_vs_cpu(name, build, dev) -> dict:
+    """One case on the card and on the CPU: every SimResults field,
+    n_quanta and last_n_iterations equal, or raise."""
+    res = {}
+    for where in (dev, "cpu"):
+        sim = build(where)
+        t0 = time.perf_counter()
+        r = sim.run()
+        res[str(where)] = (r, sim.last_n_iterations,
+                           time.perf_counter() - t0)
+    (rc, ic, wc), (rp, ip, wp) = res[str(dev)], res["cpu"]
+    bad = [f for f in RESULT_FIELDS
+           if not result_field_equal(getattr(rc, f), getattr(rp, f))]
+    if ic != ip:
+        bad.append("last_n_iterations")
+    if bad:
+        raise AssertionError(f"card != cpu on {name}: {bad}")
+    return {"case": name, "tiles": rc.n_tiles, "equal": True,
+            "n_quanta": rc.n_quanta, "iterations": ic, "card_s": wc,
+            "cpu_s": wp, "total_instructions": rc.total_instructions,
+            "completion_time_ps": rc.completion_time_ps}
+
+
+def run_counted(sim, dev) -> tuple:
+    """One run to completion from the launch counts at 0; returns (the
+    results, wall s, the counts, peak device memory)."""
+    import torch
+
+    from graphite_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not bool(sim.state.done.all()):
+        raise AssertionError("a run ended with tiles not done")
+    return r, wall, ops.launch_counts(), torch.cuda.max_memory_allocated(dev)
+
+
+def phase_p2p_full_width(dev, batch, lax_full, lax_sim, lax_init) -> dict:
+    """The headline config under lax_p2p at the default slack: warmup, then
+    P2P_RUNS timed runs, in turns with as many runs of the lax headline
+    (L P P L L P), each from its initial state with the launch counts at
+    0 just before it: the p2p `lane_fetch_cost` and the other three
+    kernels once an iteration (4 launches), the lax instantiation never.
+    The scheme schedules, it does not time: the results equal the lax
+    headline's."""
+    sim = make_sim(1024, batch, dev, scheme="lax_p2p", inner_block=64)
+    init = sim.state._map(lambda t: t.to("cpu", copy=True))
+    t0 = time.perf_counter()
+    sim.warmup()
+    warm_s = time.perf_counter() - t0
+    walls = {"lax": [], "lax_p2p": []}
+    path = (P2P_KERNEL,) + KERNEL_ORDER[1:]
+    for turn in "LPPLLP":
+        run_sim, i0, key = ((sim, init, "lax_p2p") if turn == "P"
+                            else (lax_sim, lax_init, "lax"))
+        run_sim.state = i0._map(lambda t: t.to(dev, copy=True))
+        r, wall, counts, peak = run_counted(run_sim, dev)
+        walls[key].append(wall)
+        if turn == "L":
+            continue
+        iters = sim.last_n_iterations
+        off = {k: counts[k] for k in path if counts[k] != iters}
+        if off or counts["lane_fetch_cost"]:
+            raise AssertionError(f"p2p headline: {counts} launches in "
+                                 f"{iters} iterations")
+        if (r.completion_time_ps != lax_full["completion_time_ps"]
+                or r.total_instructions != lax_full["total_instructions"]):
+            raise AssertionError("p2p headline: results differ from lax")
+        p2p_r, p2p_counts, p2p_peak = r, counts, peak
+    med = statistics.median(walls["lax_p2p"])
+    lax_med = statistics.median(walls["lax"])
+    held = held_headline(dev, batch, lax_full, path)
+    return {
+        "tiles": 1024, "points_per_tile": 2048, "slack_ns": 1000,
+        "runs": P2P_RUNS, "order": "LPPLLP", "wall_s": walls["lax_p2p"],
+        "wall_s_median": med, "lax_wall_s": walls["lax"],
+        "lax_wall_s_median": lax_med, "p2p_over_lax": med / lax_med,
+        "warmup_s": warm_s, "iterations": iters, "n_quanta": p2p_r.n_quanta,
+        "us_per_iteration_median": med / iters * 1e6,
+        "lax_us_per_iteration_median": (lax_med / lax_sim.last_n_iterations
+                                        * 1e6),
+        "sim_instr_per_s_median": p2p_r.total_instructions / med,
+        "total_instructions": p2p_r.total_instructions,
+        "completion_time_ps": p2p_r.completion_time_ps,
+        "launches_per_iteration": sum(p2p_counts[k] for k in path) / iters,
+        "max_memory_allocated": p2p_peak, "launches": p2p_counts,
+        "slack_10ns": held}
+
+
+def held_headline(dev, batch, lax_full, path) -> dict:
+    """The headline under lax_p2p at a 10 ns slack, where lanes are held
+    from the first receive on: warmup, then one timed run to completion
+    with 4 launches an iteration and the lax headline's results."""
+    sim = make_sim(1024, batch, dev, scheme="lax_p2p",
+                   extra=P2P_SLACK.format(ns=10), inner_block=64)
+    init = sim.state._map(lambda t: t.to("cpu", copy=True))
+    sim.warmup()
+    sim.state = init._map(lambda t: t.to(dev, copy=True))
+    r, wall, counts, peak = run_counted(sim, dev)
+    iters = sim.last_n_iterations
+    off = {k: counts[k] for k in path if counts[k] != iters}
+    if off or counts["lane_fetch_cost"]:
+        raise AssertionError(f"p2p headline at 10 ns: {counts} launches in "
+                             f"{iters} iterations")
+    if (r.completion_time_ps != lax_full["completion_time_ps"]
+            or r.total_instructions != lax_full["total_instructions"]):
+        raise AssertionError("p2p headline at 10 ns: results differ from lax")
+    return {"wall_s": wall, "iterations": iters, "n_quanta": r.n_quanta,
+            "us_per_iteration": wall / iters * 1e6,
+            "sim_instr_per_s": r.total_instructions / wall,
+            "launches_per_iteration": sum(counts[k] for k in path) / iters,
+            "max_memory_allocated": peak}
+
+
+def workload_row(name, sim, dev, path) -> dict:
+    """One run to completion of a BASELINE workload on the card: wall,
+    iterations, instr/s, peak memory; every kernel of `path` launched."""
+    r, wall, counts, peak = run_counted(sim, dev)
+    missing = [k for k in path if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{name} never launched {missing}")
+    row = {"workload": name, "tiles": r.n_tiles, "wall_s": wall,
+           "iterations": sim.last_n_iterations, "n_quanta": r.n_quanta,
+           "total_instructions": r.total_instructions,
+           "completion_time_ps": r.completion_time_ps,
+           "sim_instr_per_s": r.total_instructions / wall,
+           "max_memory_allocated": peak, "launches": counts}
+    if r.mem_counters is not None:
+        row["l2_misses"] = int(r.mem_counters["l2_misses"].sum())
+        row["func_errors"] = r.func_errors
+    return row
+
+
+def phase_workloads(dev) -> list:
+    """blackscholes (1024 tiles, the headline config) and canneal (1024
+    tiles, MSI full_map, lax_barrier), each once to completion; ping-pong
+    on config_text(16) and every other BENCHMARKS entry at 64 tiles, card
+    against CPU."""
+    from graphite_tpu_torch.config.template import config_text
+    from graphite_tpu_torch.trace import synthetic
+    from graphite_tpu_torch.trace.benchmarks import BENCHMARKS
+
+    rows = []
+    bs = BENCHMARKS["blackscholes"](1024)
+    sim = make_sim(1024, bs, dev, inner_block=64)
+    row = workload_row("blackscholes", sim, dev,
+                       ("lane_fetch_cost", "barrier_sync", "lane_commit"))
+    expect = trace_instructions(bs) + int(sim.state.core.sync_instructions
+                                          .sum())
+    if row["total_instructions"] != expect:
+        raise AssertionError(f"blackscholes: {row['total_instructions']} "
+                             f"instructions, trace implies {expect}")
+    rows.append(row)
+    del sim
+    t0 = time.perf_counter()
+    sim = mem_sim(1024, BENCHMARKS["canneal"](1024), dev,
+                  clock_scheme="lax_barrier")
+    setup = time.perf_counter() - t0
+    row = workload_row("canneal", sim, dev,
+                       ("lane_fetch_cost", "barrier_sync", "lane_commit")
+                       + MEM_KERNELS[:3])
+    if row["func_errors"]:
+        raise AssertionError("canneal: functional errors")
+    rows.append({**row, "setup_s": setup})
+    del sim
+    rows.append({"workload": "ping_pong", **card_vs_cpu(
+        "ping_pong16", lambda d: text_sim(
+            config_text(16), synthetic.ping_pong_trace(16), d), dev)})
+    for name, gen in BENCHMARKS.items():
+        if name in ("blackscholes", "canneal"):
+            continue
+        batch = gen(64)
+        rows.append({"workload": name, **card_vs_cpu(
+            f"{name}64", lambda d: make_sim(64, batch, d, inner_block=32),
+            dev)})
+    return rows
+
+
+STATS_EXTRA = """
+[statistics_trace]
+enabled = true
+statistics = "cache_line_replication, network_utilization, cache_line_utilization"
+sampling_interval = 2000
+[progress_trace]
+enabled = true
+[l2_cache/T1]
+track_cache_line_utilization = true
+"""
+
+
+def outputs_sim(device, extra=""):
+    """The outputs phase's run: 64 tiles of the coherence stress trace on
+    MSI full_map, lax_barrier (quanta to checkpoint and sample at)."""
+    from graphite_tpu_torch.trace import synthetic
+
+    return mem_sim(64, synthetic.memory_stress_trace(
+        64, n_accesses=40, working_set_bytes=1 << 13, write_fraction=0.4,
+        shared_fraction=0.5, seed=3), device, clock_scheme="lax_barrier",
+        extra=extra)
+
+
+def files_of(d) -> dict:
+    return {fn: open(os.path.join(d, fn), "rb").read()
+            for fn in sorted(os.listdir(d))}
+
+
+def phase_outputs(dev) -> dict:
+    """sim.out and carbon_sim.cfg of a card run byte-equal to the CPU
+    run's; a checkpoint saved mid-run on the card, loaded into a new
+    Simulator on the card and run on, equal to the uninterrupted run; the
+    chunked StatisticsManager's files of a card run byte-equal to the CPU
+    run's."""
+    import tempfile
+
+    from graphite_tpu_torch.system import (
+        StatisticsManager, load_checkpoint, save_checkpoint,
+    )
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        results = {}
+        for where in (dev, "cpu"):
+            sim = outputs_sim(where)
+            results[str(where)] = sim.run()
+            sim.write_output(results[str(where)],
+                             os.path.join(tmp, f"out_{where}"))
+        card = files_of(os.path.join(tmp, f"out_{dev}"))
+        if card != files_of(os.path.join(tmp, "out_cpu")):
+            raise AssertionError("sim.out / carbon_sim.cfg: card != cpu")
+        out["sim_out_bytes"] = len(card["sim.out"])
+        ref = results[str(dev)]
+        sim = outputs_sim(dev)
+        done, nq = sim.run_chunk(2)
+        if done:
+            raise AssertionError("checkpoint: the run ended in 2 quanta")
+        ck = os.path.join(tmp, "ckpt.npz")
+        save_checkpoint(sim, ck, n_quanta=nq)
+        resumed = outputs_sim(dev)
+        if load_checkpoint(resumed, ck) != nq:
+            raise AssertionError("checkpoint: bad quantum counter")
+        r = resumed.run()
+        bad = [f for f in RESULT_FIELDS if f != "n_quanta"
+               and not result_field_equal(getattr(r, f), getattr(ref, f))]
+        if bad:
+            raise AssertionError(f"checkpoint resume != uninterrupted: {bad}")
+        out["checkpoint"] = {"saved_at_quanta": nq,
+                             "bytes": os.path.getsize(ck),
+                             "completion_time_ps": r.completion_time_ps}
+        for where in (dev, "cpu"):
+            StatisticsManager(outputs_sim(where, STATS_EXTRA),
+                              os.path.join(tmp, f"stats_{where}")).run()
+        card = files_of(os.path.join(tmp, f"stats_{dev}"))
+        if card != files_of(os.path.join(tmp, "stats_cpu")):
+            raise AssertionError("statistics traces: card != cpu")
+        out["statistics"] = {fn: len(b.splitlines()) for fn, b in
+                             card.items()}
+    return out
+
+
 def net_kernel_us(t: dict) -> dict:
     """A `time_net_kernels` entry in µs."""
     out = {"us": t["ms"] * 1e3, "call_us": t["call_ms"] * 1e3,
@@ -2824,8 +3382,8 @@ def main() -> int:
 
     build_s = build.build_all()
     emit({"phase": "build", "seconds": build_s,
-          "kernels": list(build.KERNEL_NAMES), "card": smi,
-          "ptxas": ptxas_summary(build.BUILD_LOGS)})
+          "kernels": list(ops.KERNELS), "libraries": list(build.KERNEL_NAMES),
+          "card": smi, "ptxas": ptxas_summary(build.BUILD_LOGS)})
 
     from graphite_tpu_torch.trace.benchmarks import fft_trace
 
@@ -2963,13 +3521,41 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "north_star_hop_by_hop", "card": smi,
           **phase_hbh_north_star(dev)})
+    torch.cuda.empty_cache()
+
+    # the outputs slice: lax_p2p, barrier_host, the generators, outputs
+    pinfo = phase_p2p_kernel(dev, batch, stats)
+    p2p_t = pinfo.pop("timings")
+    emit({"phase": "p2p_kernel", "card": smi,
+          "checks_equal": stats[P2P_KERNEL]["checks"], **pinfo,
+          **{state: {name: {"us": t[name]["ms"] * 1e3,
+                            "call_us": t[name]["call_ms"] * 1e3,
+                            "plain_us": t[name]["plain_ms"] * 1e3,
+                            "bound_us": t[name]["bound_ms"] * 1e3,
+                            "bytes": t[name]["bytes"]}
+                     for name in KERNEL_ORDER}
+             for state, t in p2p_t.items()}})
+    emit({"phase": "p2p_edge_cases", "card": smi,
+          "cases": p2p_edge_cases(dev, stats)})
+    for name, build_sim in p2p_e2e_cases():
+        emit({"phase": "p2p_end_to_end", "card": smi,
+              **card_vs_cpu(name, build_sim, dev)})
+    p2p_full = phase_p2p_full_width(dev, batch, full, sim, init)
+    emit({"phase": "p2p_full_width", "card": smi, **p2p_full})
+    torch.cuda.empty_cache()
+    for row in phase_workloads(dev):
+        emit({"phase": "workloads", "card": smi, **row})
+    torch.cuda.empty_cache()
+    emit({"phase": "outputs", "card": smi, **phase_outputs(dev)})
 
     rows = []
     send = kinfo["timings"]["send_phase"]
     for name in KERNEL_ORDER + MEM_KERNELS + NOC_KERNELS + (
-            "mem_net_route",):
+            "mem_net_route", P2P_KERNEL):
         mem = name in MEM_KERNELS
-        if name in NOC_KERNELS:
+        if name == P2P_KERNEL:
+            tm, path = p2p_t["send_phase"]["lane_fetch_cost"], p2p_full
+        elif name in NOC_KERNELS:
             tm, path = ninfo[name]["timings"][name], radix[name]
         elif name == "mem_net_route":
             tm = nk[MEM_NETS[0]]["timings"][name]
@@ -2997,22 +3583,29 @@ def main() -> int:
     return 0
 
 
-AB_WORKLOADS = ("companion", "north_star")
+AB_WORKLOADS = ("headline", "companion", "north_star")
 
 
 def ab_in(workload: str, tree: str) -> int:
     """One process of `ab`: `workload` with the package of `tree` — the
-    companion warmed up, then MEM_RUNS timed runs from one initial state;
-    or the north star (its kernels built) timed once."""
+    headline or the companion warmed up, then RUNS / MEM_RUNS timed runs
+    from one initial state; or the north star (its kernels built) timed
+    once."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
     dev = torch.device("cuda", 0)
-    if workload == "companion":
-        sim = companion(dev)
+    if workload in ("headline", "companion"):
+        if workload == "headline":
+            from graphite_tpu_torch.trace.benchmarks import fft_trace
+
+            sim = make_sim(1024, fft_trace(1024, points_per_tile=2048), dev,
+                           inner_block=64)
+        else:
+            sim = companion(dev)
         init = sim.state._map(lambda t: t.to("cpu", copy=True))
         sim.warmup()
-        runs = MEM_RUNS
+        runs = RUNS if workload == "headline" else MEM_RUNS
     else:
         from graphite_tpu_torch.ops.build import build_all
         from graphite_tpu_torch.trace.benchmarks import fft_trace
@@ -3024,7 +3617,7 @@ def ab_in(workload: str, tree: str) -> int:
         runs = 1
     walls = []
     for _ in range(runs):
-        if workload == "companion":
+        if workload != "north_star":
             sim.state = init._map(lambda t: t.to(dev, copy=True))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3037,7 +3630,7 @@ def ab_in(workload: str, tree: str) -> int:
 
 
 def ab(workload: str, trees) -> int:
-    """`python3 chip_smoke.py --ab companion|north_star TREE [TREE ...]`:
+    """`python3 chip_smoke.py --ab headline|companion|north_star TREE...`:
     the workload timed with the `graphite_tpu_torch` package of each TREE
     (a directory that holds one, e.g. a `git archive` unpacked into the
     git-ignored `_archive/`), each in a process of its own, the trees in

@@ -14,10 +14,17 @@ JAX:
    (`IocoomState`) and the USER net's contention queues (`noc_user`:
    hop-by-hop `NocState` or ATAC `AtacState`) included;
  - `state_to_arrays(state)` is the inverse: a nested dict of numpy arrays
-   with the JAX leaves' names, dtypes and shapes.
+   with the JAX leaves' names, dtypes and shapes;
+ - `checkpoint_arrays(state)` / `state_from_checkpoint(arrays, device)`
+   speak the JAX checkpoint's flat layout (`graphite_tpu/system/
+   checkpoint.py:20-29`): one array per leaf, keyed by its pytree path
+   ("core||clock_ps", "mem||l2||meta", ...), absent leaves left out,
+   the uint32 leaves as uint32.  Keys are field names, so nothing here
+   needs JAX.
 
 A JAX run can thus be handed to the port mid-run (`Simulator.state =
-state_from_arrays(...)`) and continued on the card.
+state_from_arrays(...)`, or a JAX checkpoint through
+`system.load_checkpoint`) and continued on the card.
 """
 
 from __future__ import annotations
@@ -32,8 +39,8 @@ from graphite_tpu_torch.engine.state import (
     CoreState, DvfsState, SimState, SyncState, UserNetState,
 )
 from graphite_tpu_torch.memory.state import (
-    CacheArrays, DirectoryArrays, MemCounters, MemMailboxes, MemState,
-    RequesterState, TxnState,
+    MSG_NONE, PHASE_IDLE, CacheArrays, DirectoryArrays, MemCounters,
+    MemMailboxes, MemState, RequesterState, TxnState,
 )
 from graphite_tpu_torch.models.iocoom import IocoomState
 from graphite_tpu_torch.models.network_atac import AtacState
@@ -50,6 +57,11 @@ _UNPORTED = {
 # other uint32 leaves (miss types, line utilization, the functional
 # store) become int64
 _INT32_WORDS = ("sharers", "pending")
+# the uint32 leaves the port holds zero-extended as int64
+_UINT32_WIDE = ("func_mem", "l2_util", "mt")
+# the separator of a checkpoint key's path (`graphite_tpu/system/
+# checkpoint.py` _SEP)
+CKPT_SEP = "||"
 
 
 def _get(tree, name, default=None):
@@ -177,3 +189,70 @@ def state_to_arrays(state: SimState) -> dict:
     """A nested dict of numpy arrays, one entry per SimState leaf, named
     like the JAX package's pytree (None for absent optional nodes)."""
     return _to_np(state)
+
+
+def _checkpoint_leaves(tree, prefix: str = ""):
+    """(key, field name, tensor) of every present leaf, in field order."""
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        key = f"{prefix}{CKPT_SEP}{f.name}" if prefix else f.name
+        if isinstance(v, torch.Tensor):
+            yield key, f.name, v
+        elif dataclasses.is_dataclass(v):
+            yield from _checkpoint_leaves(v, key)
+
+
+def _jax_dtype(name: str, t: torch.Tensor) -> np.dtype:
+    if name in _INT32_WORDS or name in _UINT32_WIDE:
+        return np.dtype(np.uint32)
+    return np.dtype(str(t.dtype).removeprefix("torch."))
+
+
+def checkpoint_layout(state: SimState) -> dict:
+    """{pytree path: (shape, JAX dtype)} of the leaves `state` has."""
+    return {key: (tuple(t.shape), _jax_dtype(name, t))
+            for key, name, t in _checkpoint_leaves(state)}
+
+
+def checkpoint_arrays(state: SimState) -> dict:
+    """The JAX checkpoint's arrays of `state`: {pytree path: array}, with
+    the JAX leaves' dtypes.  Two leaves only the JAX package has are
+    added so that it can load the file: `mem||live` (any protocol state
+    outstanding, `memory/engine.py` protocol_live) and the per-phase skip
+    counters `mem||phase_skips` (zeros).  A JAX run with directory
+    staging has leaves the port has no counterpart for, and cannot load
+    it."""
+    out = {}
+    for key, name, t in _checkpoint_leaves(state):
+        a = t.detach().cpu().numpy()
+        if name in _INT32_WORDS:
+            a = a.view(np.uint32)
+        elif name in _UINT32_WIDE:
+            a = a.astype(np.uint32)
+        out[key] = a
+    if state.mem is not None:
+        ms = state.mem
+        mail = ms.mail
+        live = (any(bool((getattr(mail, f) != MSG_NONE).any()) for f in (
+            "req_type", "evict_type", "fwd_type", "ack_type", "rep_type"))
+            or bool(ms.txn.active.any()) or bool(ms.txn.saved_valid.any())
+            or bool((ms.req.phase != PHASE_IDLE).any()))
+        out[f"mem{CKPT_SEP}live"] = np.asarray(live)
+        out[f"mem{CKPT_SEP}phase_skips"] = np.zeros(6, np.int64)
+    return out
+
+
+def state_from_checkpoint(arrays, device) -> SimState:
+    """The port's SimState from a JAX checkpoint's arrays (a mapping of
+    pytree path -> array, such as an open `np.load` of one); keys that
+    start with `__` (the quantum counter) are skipped."""
+    tree: dict = {}
+    for key in arrays.keys():
+        if key.startswith("__"):
+            continue
+        *path, leaf = key.split(CKPT_SEP)
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(arrays[key])
+    return state_from_arrays(tree, device)

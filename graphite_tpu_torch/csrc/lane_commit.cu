@@ -13,6 +13,11 @@
 // simple core passes them null and launches the MODELS = false
 // instantiation, the kernel as it was before they existed.
 //
+// Under lax_p2p the round counter (`p2p_round`, int32[], the JAX step's
+// :270 and :1195) goes up by one an iteration, wrapping like int32: one
+// thread adds it here, after lane_fetch_cost, which read it, has finished
+// (the launches are stream-ordered).  Null under the other schemes.
+//
 // Design: one thread a lane, in CTAs of THREADS = 64 so that the lanes'
 // loads spread over 16 SMs at T = 1024, with no load behind another that
 // need not be:
@@ -96,6 +101,7 @@ struct CommitArgs {
     const bool* enabled;
     const int64_t* qend;
     const int64_t* cost_table;
+    int32_t* p2p_round;        // null unless lax_p2p
     // memory subsystem (null without one)
     const bool* mem_ok;
     int32_t* req_slot;
@@ -311,12 +317,14 @@ lane_commit_kernel(const CommitArgs a) {
     }
     const int n = __syncthreads_count(advance);
     if (threadIdx.x == 0 && n > 0) atomicAdd(a.progress, n);
+    if (a.p2p_round && blockIdx.x == 0 && threadIdx.x == 0)
+        *a.p2p_round = wrap_add(*a.p2p_round, 1);
 }
 
 extern "C" int gt_lane_commit(const CommitArgs* args,
                               cudaStream_t stream) {
-    static_assert(sizeof(CommitArgs) == 61 * 8,
-                  "CommitArgs: 57 pointers and 4 int64");
+    static_assert(sizeof(CommitArgs) == 62 * 8,
+                  "CommitArgs: 58 pointers and 4 int64");
     const int T = (int)args->T;
     const int blocks = (T + THREADS - 1) / THREADS;
     if (args->memory_stall)

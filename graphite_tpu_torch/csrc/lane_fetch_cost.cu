@@ -2,7 +2,8 @@
 //
 // Replaces (XLA unit): graphite_tpu/engine/step.py:193-241 (record fetch:
 // the uniform-column dynamic_slice / per-row gather and the predictor
-// read), :242-251 (done latch, active vs qend) and :342-403 (classify +
+// read), :242-251 (done latch, active vs qend), :253-272 (the lax_p2p
+// hold, in the P2P instantiation) and :342-403 (classify +
 // static/branch/dynamic/syscall/BBLOCK cost at the lane's frequency).
 // Plain version: graphite_tpu_torch/ops/lane_fetch_cost.py.
 //
@@ -29,6 +30,19 @@
 //  - pc mod bp_size is a mask when bp_size is a power of two (the wrapper
 //    decides once, at bind time) and a 32-bit remainder otherwise: pc is
 //    the zero-extended uint32 column, never negative.
+//
+// The lax_p2p hold (entry point gt_lane_fetch_cost_p2p, P2P = true; the
+// wrapper picks the entry point at bind time, and the P2P = false body is
+// the kernel as it was).  Each lane draws a partner from a uint32 hash of
+// (round, tile) and is held when its clock is more than the slack ahead
+// of a partner still running after THIS iteration's latch.  That latch is
+// written by the partner's own thread, maybe in another CTA, so the
+// thread recomputes it instead: done_in[p] or the partner's fetched op
+// (t_op[p, idx[p]]) is NOP / THREAD_EXIT.  The partner's clock is the
+// pre-commit clock, as in the JAX step.  The round counter is read at the
+// top; lane_commit advances it after this kernel has finished.  Partner
+// chain: round -> (idx, clock, done_in of p) -> op of p, beside the
+// lane's own chain; ~14 B more a lane.
 #include "common.cuh"
 
 #define THREADS 64
@@ -71,8 +85,18 @@ struct FetchArgs {
     int64_t cost[N_COSTS];     // static cost cycles by op (op < 20)
 };
 
-__global__ void __launch_bounds__(THREADS)
-lane_fetch_cost_kernel(const __grid_constant__ FetchArgs a) {
+// Argument block of the P2P entry point = ops/lane_fetch_cost.py
+// `_pack_p2p`.
+struct P2PArgs {
+    FetchArgs f;
+    const int32_t* round;      // int32[]: the lax_p2p round counter
+    int64_t slack;             // ps
+};
+
+template <bool P2P>
+__device__ __forceinline__ void fetch_cost(const FetchArgs& a,
+                                           const int32_t* round,
+                                           int64_t slack) {
     const int T = (int)a.T, L = (int)a.L, B = (int)a.B;
     const int t = blockIdx.x * THREADS + threadIdx.x;
     if (t >= T) return;
@@ -95,7 +119,21 @@ lane_fetch_cost_kernel(const __grid_constant__ FetchArgs a) {
     const uint8_t pred = a.bp_bits[(size_t)t * B + bp_index];
 
     const bool done = done_in || op == OP_NOP || op == OP_THREAD_EXIT;
-    const bool active = !done && clock < q;
+    bool active = !done && clock < q;
+    if constexpr (P2P) {
+        uint32_t rnd = (uint32_t)*round * 747796405u +
+                       (uint32_t)t * 2891336453u;
+        rnd = (rnd ^ (rnd >> 13)) * 1103515245u;
+        const uint32_t span = T > 1 ? (uint32_t)(T - 1) : 1u;
+        const int p = (int)(((uint32_t)t + 1u + rnd % span) % (uint32_t)T);
+        const int32_t p_idx = a.idx[p];
+        const int64_t p_clock = a.clock[p];
+        const bool p_done_in = a.done_in[p];
+        const int p_op = a.t_op[(size_t)p * L + clamp_i32(p_idx, 0, L - 1)];
+        const bool p_done =
+            p_done_in || p_op == OP_NOP || p_op == OP_THREAD_EXIT;
+        if (clock > p_clock + slack && !p_done) active = false;
+    }
 
     int64_t cycles;
     if (op == OP_BRANCH) {
@@ -124,6 +162,16 @@ lane_fetch_cost_kernel(const __grid_constant__ FetchArgs a) {
     a.o_cost[t] = cost;
 }
 
+__global__ void __launch_bounds__(THREADS)
+lane_fetch_cost_kernel(const __grid_constant__ FetchArgs a) {
+    fetch_cost<false>(a, nullptr, 0);
+}
+
+__global__ void __launch_bounds__(THREADS)
+lane_fetch_cost_p2p_kernel(const __grid_constant__ P2PArgs a) {
+    fetch_cost<true>(a.f, a.round, a.slack);
+}
+
 extern "C" int gt_lane_fetch_cost(const FetchArgs* args,
                                   cudaStream_t stream) {
     static_assert(sizeof(FetchArgs) == 52 * 8,
@@ -131,5 +179,15 @@ extern "C" int gt_lane_fetch_cost(const FetchArgs* args,
     const int T = (int)args->T;
     lane_fetch_cost_kernel<<<(T + THREADS - 1) / THREADS, THREADS, 0,
                              stream>>>(*args);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int gt_lane_fetch_cost_p2p(const P2PArgs* args,
+                                      cudaStream_t stream) {
+    static_assert(sizeof(P2PArgs) == 54 * 8,
+                  "P2PArgs: FetchArgs, the round pointer and the slack");
+    const int T = (int)args->f.T;
+    lane_fetch_cost_p2p_kernel<<<(T + THREADS - 1) / THREADS, THREADS, 0,
+                                 stream>>>(*args);
     return (int)cudaGetLastError();
 }

@@ -1,10 +1,12 @@
 """The quantum loop driver.
 
 Port of `graphite_tpu/engine/step.py` `_quantum_loop` (`:1207-1264`) and
-`run_simulation` (`:1285-1454`) for the `lax` (one unbounded quantum,
-qend = 2**61) and `lax_barrier` clock-skew schemes.  The JAX package runs
-both loops on the device as one compiled region; here the host drives
-them, with the loop state kept on the device where it can be:
+`run_simulation` (`:1285-1454`) for the `lax` and `lax_p2p` (one unbounded
+quantum, qend = 2**61) and `lax_barrier` clock-skew schemes.  The JAX
+package runs both loops on the device as one compiled region (under
+`barrier_host`, one region a batch of quanta, `barrier_host_batch`
+`:1457-1553`, which reaches the same state); here the host drives them,
+with the loop state kept on the device where it can be:
 
  - the advanced-lane count is summed on the device (`Lanes.progress`,
    by `lane_commit`) and read to the host once per block of

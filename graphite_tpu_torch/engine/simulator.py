@@ -5,9 +5,10 @@ supports: the simple in-order and the iocoom cores (mixed per tile by
 `[tile] model_list`), without a memory subsystem or with the private-L1/L2
 MSI directory protocol (`full_map` directory), the magic,
 emesh_hop_counter, emesh_hop_by_hop or atac network as the USER and as
-the MEMORY net, and the `lax` / `lax_barrier` clock-skew schemes,
-resident on one device.  `SimResults`, `summary()`,
-`DeadlockError` and `MailboxOverflowError` match the JAX package.
+the MEMORY net, and the `lax`, `lax_barrier` and `lax_p2p` clock-skew
+schemes (`lax_barrier` also host-driven, `barrier_host`), resident on one
+device.  `SimResults`, `summary()`, `write_output()`, `DeadlockError` and
+`MailboxOverflowError` match the JAX package.
 
 Every other configuration raises `NotImplementedError` naming the
 ROADMAP.md queue-1 item that ports it — the port never silently runs
@@ -322,16 +323,19 @@ class Simulator:
         device=None,
         stream: bool = False,
         barrier_host: "bool | None" = None,
+        barrier_batch: "int | None" = None,
         telemetry=None,
         profile=None,
         hist=None,
         dvfs=None,
     ):
-        if stream:
-            raise _not_ported("trace streaming (stream=True)", 11)
-        if barrier_host:
-            raise _not_ported("host-driven lax_barrier quanta "
-                              "(barrier_host=True)", 4)
+        """`barrier_host` and `barrier_batch` (`[general] barrier_batch`,
+        default 8) are resolved and checked as in the JAX package, where
+        they drive the `lax_barrier` quanta from the host in batches; the
+        port's host drives every quantum already, so both leave the
+        results, `n_quanta` and `last_n_iterations` as they are.  None
+        resolves as there: on for `lax_barrier` with the memory subsystem
+        at 1,024 tiles or more and a trace with SEND records."""
         for name, spec, item in (("telemetry", telemetry, 12),
                                  ("profile", profile, 12),
                                  ("hist", hist, 12),
@@ -362,13 +366,41 @@ class Simulator:
                 iocoom_tiles = tuple(t == "iocoom" for t in core_list)
         scheme = cfg.get_string("clock_skew_management/scheme",
                                 "lax_barrier")
+        self.p2p_slack_ps = None
         if scheme == "lax_barrier":
             self.quantum_ps = ns_to_ps(cfg.get_int(
                 "clock_skew_management/lax_barrier/quantum", 1000))
         elif scheme == "lax_p2p":
-            raise _not_ported("the lax_p2p clock-skew scheme", 4)
+            # unbounded quanta, the pairwise hold applied inside the step
+            self.quantum_ps = None
+            self.p2p_slack_ps = ns_to_ps(cfg.get_int(
+                "clock_skew_management/lax_p2p/slack", 1000))
         else:
             self.quantum_ps = None  # lax: one unbounded quantum
+        # host-driven lax_barrier quanta (`engine/simulator.py:648-678` of
+        # the JAX package): the default, its checks and its batch size
+        if barrier_host is None:
+            barrier_host = (self.quantum_ps is not None
+                            and mem_params is not None
+                            and n_tiles >= 1024
+                            and bool(np.any(trace.op == int(Op.SEND)))
+                            and not stream)
+        if barrier_host and self.quantum_ps is None:
+            raise ValueError(
+                "barrier_host=True needs the lax_barrier clock scheme "
+                "(there are no quanta to drive host-side otherwise)")
+        self.barrier_host = bool(barrier_host)
+        if self.barrier_host and stream:
+            raise ValueError(
+                "host-driven lax_barrier quanta support single-device "
+                "resident runs only")
+        if barrier_batch is None:
+            barrier_batch = cfg.get_int("general/barrier_batch", 8)
+        if barrier_batch < 1:
+            raise ValueError("barrier_batch must be >= 1")
+        self.barrier_batch = int(barrier_batch)
+        if stream:
+            raise _not_ported("trace streaming (stream=True)", 11)
         net_params = UserNetworkParams.from_config(config)
         # the USER net's contention model (`engine/simulator.py:561-571`
         # of the JAX package); the mailbox then takes its routed latency
@@ -410,6 +442,7 @@ class Simulator:
             iocoom_tiles=iocoom_tiles,
             user_hbh=user_hbh,
             user_atac=user_atac,
+            p2p_slack_ps=self.p2p_slack_ps,
         )
 
         self.device = resolve_device(device)
@@ -509,6 +542,10 @@ class Simulator:
         return pu
 
     def _drive(self, max_quanta: int):
+        """Quanta until done, an error or `max_quanta`; returns (quanta,
+        all done).  The host drives every quantum, so `barrier_host`'s
+        batches (`engine/simulator.py:1262-1303` of the JAX package) reach
+        the same state in one call; `barrier_batch` changes nothing."""
         n, deadlock, iters = run_simulation(
             self.params, self.device_trace, self.state, self.quantum_ps,
             max_quanta, self._lanes, self._cost_table, self.models)
@@ -524,6 +561,10 @@ class Simulator:
             raise DeadlockError(
                 f"no progress across a quantum; blocked tiles: "
                 f"{blocked[:16]}{'...' if len(blocked) > 16 else ''}")
+        if self.barrier_host and n == 0 and max_quanta > 0 and not done.all():
+            # the loop's entry condition makes this unreachable
+            raise DeadlockError(
+                "host-barrier batch made no progress and raised no flag")
         return n, bool(done.all())
 
     def run_chunk(self, n_quanta: int):
@@ -559,8 +600,22 @@ class Simulator:
     def run_streamed(self, *args, **kwargs):
         raise _not_ported("trace streaming (run_streamed)", 11)
 
-    def write_output(self, *args, **kwargs):
-        raise _not_ported("write_output / system/statistics.py", 5)
+    def write_output(self, results: SimResults,
+                     output_dir: str = "results") -> str:
+        """Write `sim.out` (the summary) and the sorted config snapshot
+        `carbon_sim.cfg` into `output_dir`, byte for byte as the JAX
+        package does (`engine/simulator.py:1396-1410`); returns the path
+        of `sim.out`."""
+        import os
+
+        os.makedirs(output_dir, exist_ok=True)
+        out_path = os.path.join(output_dir, "sim.out")
+        with open(out_path, "w") as f:
+            f.write(results.summary() + "\n")
+        with open(os.path.join(output_dir, "carbon_sim.cfg"), "w") as f:
+            for key, value in sorted(self.config.cfg.as_dict().items()):
+                f.write(f"{key} = {value}\n")
+        return out_path
 
     def results(self, n_quanta: int) -> SimResults:
         """SimResults from the current state."""

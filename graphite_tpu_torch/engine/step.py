@@ -2,12 +2,15 @@
 
 Port of `graphite_tpu/engine/step.py` `subquantum_iteration` (`:151-1204`)
 for the simple and iocoom cores, with or without the private-L1/L2 MSI
-memory subsystem (no `lax_p2p` clamp).  The JAX step is one pure
+memory subsystem, under any of the three clock-skew schemes (the
+`lax_p2p` hold is part of `lane_fetch_cost`'s active latch, and
+`lane_commit` advances its round counter).  The JAX step is one pure
 function; here it is a fixed sequence of units over one `Lanes` scratch,
 and the state is updated IN PLACE where JAX carried a buffer through the
 loop (mailbox rings, barrier tables, core counters, memory state):
 
-    lane_fetch_cost   kernel   fetch + done/active + cost       (:193-403)
+    lane_fetch_cost   kernel   fetch + done/active (+ the lax_p2p
+                               hold) + cost                     (:193-403)
     memory engine     3 kernels + PyTorch, six phases           (:279-340)
     noc_route or      kernel   the sends through a contention   (:414-431)
       atac_route               USER net (emesh_hop_by_hop, atac)
@@ -119,12 +122,16 @@ class EngineParams:
     # under magic / emesh_hop_counter)
     user_hbh: "object" = None
     user_atac: "object" = None
+    # the lax_p2p scheme's slack in ps (None under lax / lax_barrier)
+    p2p_slack_ps: "int | None" = None
 
     def n_follow(self, trace_length: int) -> int:
         """Follow-on PLAIN records a lane may commit per iteration (the
-        simple-core memoryless runs only, as in the JAX step)."""
+        simple-core memoryless runs only, as in the JAX step; never under
+        lax_p2p, whose hold is per iteration, `step.py:1009-1013`)."""
         if (self.plain_unroll <= 1 or trace_length <= 1
-                or self.mem is not None or self.iocoom is not None):
+                or self.mem is not None or self.iocoom is not None
+                or self.p2p_slack_ps is not None):
             return 0
         return min(self.plain_unroll - 1, PLAIN_UNROLL_MAX - 1,
                    trace_length - 1)
@@ -396,10 +403,12 @@ def subquantum_iteration(params: EngineParams, trace: DeviceTrace,
     JAX step's second return value)."""
     core = state.core
     units = params.units
+    p2p_round = None if params.p2p_slack_ps is None else state.p2p_round
     lane_fetch_cost(trace, core, state.done, state.models_enabled, qend,
                     cost_table, bp_enabled=params.bp_enabled,
                     bp_penalty=params.bp_mispredict_penalty,
-                    syscall_rt_ps=params.syscall_rt_ps, lanes=lanes)
+                    syscall_rt_ps=params.syscall_rt_ps, lanes=lanes,
+                    p2p_slack_ps=params.p2p_slack_ps, p2p_round=p2p_round)
     if params.mem is not None:
         from graphite_tpu_torch.memory.engine import memory_engine_step
 
@@ -441,7 +450,7 @@ def subquantum_iteration(params: EngineParams, trace: DeviceTrace,
     lane_commit(trace.op, lanes, freq_new, en_post, core, state.net,
                 state.done, state.models_enabled, qend, cost_table,
                 n_follow=params.n_follow(trace.length), req=req,
-                ioc_tile=models.ioc_tile)
+                ioc_tile=models.ioc_tile, p2p_round=p2p_round)
     if "models" in units:
         state.models_enabled.copy_(lanes.en_post)
 

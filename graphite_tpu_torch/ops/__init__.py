@@ -3,6 +3,7 @@
 | wrapper            | replaces (graphite_tpu/engine/step.py)            |
 | ------------------ | ------------------------------------------------- |
 | `lane_fetch_cost`  | fetch :193-241, done/active :242-251, cost :342-403 |
+|   `[p2p]`          | the same, with the `lax_p2p` hold :253-272        |
 | `user_mailbox`     | `_net_block` :413-502 (+ network_user.py:96-116)  |
 | `noc_route`        | `_net_block` :414-423 (+ network_hop_by_hop.py)   |
 | `atac_route`       | `_net_block` :424-431 (+ network_atac.py)         |
@@ -68,6 +69,8 @@ KERNELS = {
               _mem_requester, _mem_home_start, _mem_requester_fill,
               _iocoom_commit, _noc_route, _atac_route, _mem_net_route)
 }
+# the `lax_p2p` instantiation of lane_fetch_cost, counted apart
+KERNELS[_lane_fetch_cost.KERNEL_P2P.name] = _lane_fetch_cost.KERNEL_P2P
 
 
 def launch_counts() -> dict:

@@ -170,13 +170,16 @@ class Kernel:
     calls `launch_bound(tensors, key)`, which launches on PyTorch's
     current stream, raises on a non-zero launch status and counts the
     launch; `pack(tensors, key)` validates the arguments and returns the
-    block (a ctypes array)."""
+    block (a ctypes array).  `lib` names the kernel library (`csrc/<lib>.cu`)
+    when it differs from `name`: a second entry point of one library, such
+    as a template instantiation counted apart."""
 
-    def __init__(self, name: str, symbol: str, pack):
+    def __init__(self, name: str, symbol: str, pack, lib: str = ""):
         self.name = name
         self.symbol = symbol
         self.pack = pack
-        self.source = f"graphite_tpu_torch/csrc/{name}.cu"
+        self.lib = lib or name
+        self.source = f"graphite_tpu_torch/csrc/{self.lib}.cu"
         self.launches = 0
         self.packs = 0
         self.binding = None
@@ -184,7 +187,7 @@ class Kernel:
 
     def _bind(self):
         if self._fn is None:
-            lib = load(self.name)
+            lib = load(self.lib)
             fn = getattr(lib, self.symbol)
             fn.argtypes = [P, P]
             fn.restype = ctypes.c_int

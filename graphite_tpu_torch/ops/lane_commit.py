@@ -13,6 +13,8 @@ one-bit predictor write (the lane's own (t, pc mod bp_size) cell); up to
 KX follow-on PLAIN records (static non-branch ops, op <= MFENCE) charged
 at the post-DVFS frequency while their cumulative start stays before
 qend; `done` latched; and the advanced-lane count added to `progress`.
+Under `lax_p2p` the round counter `p2p_round` goes up by one
+(`:270`, int32, wrapping), after `lane_fetch_cost` has read it.
 """
 
 from __future__ import annotations
@@ -63,8 +65,9 @@ _BP_BITS = 1 + len(_LANE_IN) + 3 + len(_CORE)   # its place in the args
 
 def _pack(tensors: tuple, key: tuple):
     """Validate and pack one argument set (`CommitArgs` in
-    csrc/lane_commit.cu: the 57 pointers — the last nine None for the
-    memoryless simple core — then T, L, B and KX)."""
+    csrc/lane_commit.cu: the 58 pointers — `p2p_round` None unless
+    lax_p2p, the last nine None for the memoryless simple core — then T,
+    L, B and KX)."""
     (n_follow,) = key
     if not 0 <= n_follow <= MAX_FOLLOW:
         raise ValueError(f"lane_commit: n_follow {n_follow} outside "
@@ -80,7 +83,8 @@ def _pack(tensors: tuple, key: tuple):
     specs += [("core.bp_bits", torch.uint8, (T, B))]
     specs += [(f"net.{n}", dt, t) for n, dt in _NET]
     specs += [("done", torch.bool, t), ("enabled", torch.bool, ()),
-              ("qend", torch.int64, ()), ("cost_table", torch.int64, (20,))]
+              ("qend", torch.int64, ()), ("cost_table", torch.int64, (20,)),
+              ("p2p_round", torch.int32, ())]
     specs += [("lanes.mem_ok", torch.bool, t), ("req.slot", torch.int32, t),
               ("req.acc_ps", torch.int64, t),
               ("req.slot_lat_ps", torch.int64, (T, 3)),
@@ -99,7 +103,8 @@ def lane_commit_plain(trace_op: torch.Tensor, lanes: Lanes,
                       core: CoreState, net: UserNetState,
                       done: torch.Tensor, enabled: torch.Tensor,
                       qend: torch.Tensor, cost_table: torch.Tensor,
-                      n_follow: int, req=None, ioc_tile=None) -> None:
+                      n_follow: int, req=None, ioc_tile=None,
+                      p2p_round=None) -> None:
     i64 = torch.int64
     ln = lanes
     op, active = ln.op, ln.active
@@ -239,6 +244,9 @@ def lane_commit_plain(trace_op: torch.Tensor, lanes: Lanes,
         req.acc_ps.copy_(torch.where(advance, 0, req.acc_ps))
         req.slot_lat_ps.copy_(torch.where(advance[:, None], 0,
                                           req.slot_lat_ps))
+    if p2p_round is not None:
+        p2p_round.copy_(((p2p_round.to(i64) + 1 + 2**31) % 2**32
+                         - 2**31).to(torch.int32))
 
 
 def lane_commit(trace_op: torch.Tensor, lanes: Lanes,
@@ -246,7 +254,8 @@ def lane_commit(trace_op: torch.Tensor, lanes: Lanes,
                 core: CoreState, net: UserNetState,
                 done: torch.Tensor, enabled: torch.Tensor,
                 qend: torch.Tensor, cost_table: torch.Tensor, *,
-                n_follow: int, req=None, ioc_tile=None) -> None:
+                n_follow: int, req=None, ioc_tile=None,
+                p2p_round=None) -> None:
     """Commit one iteration in place: `core`, `net`'s counters, `done`,
     and `lanes.progress` (+= lanes advanced).  `freq_new` is the post-
     DVFS_SET core frequency, `en_post` the post-event models-enabled
@@ -255,28 +264,30 @@ def lane_commit(trace_op: torch.Tensor, lanes: Lanes,
     RequesterState (records with memory slots wait for `lanes.mem_ok`,
     pay `req.acc_ps`, and a committed record resets the slot machinery);
     with the iocoom core `ioc_tile` marks its tiles (their instruction
-    records take `lanes.ioc_clock` and the iocoom stall increments)."""
+    records take `lanes.ioc_clock` and the iocoom stall increments); under
+    `lax_p2p` `p2p_round` (int32[]) goes up by one."""
     if done.device.type == "cpu":
         lane_commit_plain(trace_op, lanes, freq_new, en_post, core, net,
                           done, enabled, qend, cost_table, n_follow,
-                          req=req, ioc_tile=ioc_tile)
+                          req=req, ioc_tile=ioc_tile, p2p_round=p2p_round)
         return
     if done.device.type != "cuda":
         raise ValueError(f"lane_commit: unsupported device {done.device}")
     KERNEL.launch_bound(*bound_args(trace_op, lanes, freq_new, en_post,
                                     core, net, done, enabled, qend,
-                                    cost_table, n_follow, req, ioc_tile))
+                                    cost_table, n_follow, req, ioc_tile,
+                                    p2p_round))
 
 
 def bound_args(trace_op, lanes, freq_new, en_post, core, net, done,
                enabled, qend, cost_table, n_follow, req=None,
-               ioc_tile=None) -> tuple:
+               ioc_tile=None, p2p_round=None) -> tuple:
     """The (tensors, key) a call binds, in `CommitArgs` order."""
     mem = req is not None
     ioc = ioc_tile is not None
     return ((trace_op, *_lane_get(lanes), freq_new, en_post, lanes.progress,
              *_core_get(core), core.bp_bits, *_net_get(net), done, enabled,
-             qend, cost_table,
+             qend, cost_table, p2p_round,
              lanes.mem_ok if mem else None, req.slot if mem else None,
              req.acc_ps if mem else None, req.slot_lat_ps if mem else None,
              ioc_tile, lanes.ioc_clock if ioc else None,

@@ -1,17 +1,22 @@
 """`lane_fetch_cost`: per-lane record fetch, done/active latch and cost.
 
 Replaces the fetch (`graphite_tpu/engine/step.py:193-241`), the done/
-active latch (`:242-251`) and the classify + cost block (`:342-403`) of
-the JAX step.  Kernel: `csrc/lane_fetch_cost.cu`, one thread a lane,
-launched through a binding (`build.Kernel.launch_bound`): its arguments
-are validated once per set of tensors, and the static cost table is read
-into the argument block then (the port never writes the table).  For CPU
-tensors the wrapper runs `lane_fetch_cost_plain`, the same function in
-PyTorch; for CUDA tensors it launches the kernel or raises.
+active latch (`:242-251`), the `lax_p2p` hold (`:253-272`) and the
+classify + cost block (`:342-403`) of the JAX step.  Kernel:
+`csrc/lane_fetch_cost.cu`, one thread a lane, launched through a binding
+(`build.Kernel.launch_bound`): its arguments are validated once per set
+of tensors, and the static cost table is read into the argument block
+then (the port never writes the table).  Under `lax_p2p` the wrapper
+launches the kernel's P2P instantiation (`KERNEL_P2P`, counted apart as
+`lane_fetch_cost[p2p]`), which reads the round counter and the slack as
+well.  For CPU tensors the wrapper runs `lane_fetch_cost_plain`, the
+same function in PyTorch; for CUDA tensors it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 from operator import attrgetter
 
 import torch
@@ -62,14 +67,42 @@ def _pack(tensors: tuple, key: tuple):
         *costs.tolist()))
 
 
+def _pack_p2p(tensors: tuple, key: tuple):
+    """`P2PArgs`: the `FetchArgs` block, then the round counter's pointer
+    and the slack in ps."""
+    *key, slack_ps = key
+    block = _pack(tensors[:-1], tuple(key))
+    rnd = check(tensors[-1], "p2p_round", torch.int32, (),
+                tensors[0].device)
+    words = [*block, rnd, int(slack_ps)]
+    return (ctypes.c_int64 * len(words))(*words)
+
+
 KERNEL = Kernel("lane_fetch_cost", "gt_lane_fetch_cost", pack=_pack)
+KERNEL_P2P = Kernel("lane_fetch_cost[p2p]", "gt_lane_fetch_cost_p2p",
+                    pack=_pack_p2p, lib="lane_fetch_cost")
+_U32 = 0xFFFFFFFF
+
+
+def p2p_partner(p2p_round: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """Each lane's partner this round (`step.py:259-266`): a uint32 hash
+    of (round, tile), held in int64 and masked to 32 bits, then a tile
+    other than the lane's own (itself only when T = 1)."""
+    tiles = torch.arange(n_tiles, dtype=torch.int64,
+                         device=p2p_round.device)
+    r = p2p_round.to(torch.int64) & _U32
+    rnd = (r * 747796405 + tiles * 2891336453) & _U32
+    rnd = ((rnd ^ (rnd >> 13)) * 1103515245) & _U32
+    return (tiles + 1 + rnd % max(n_tiles - 1, 1)) % n_tiles
 
 
 def lane_fetch_cost_plain(trace: DeviceTrace, core: CoreState,
                           done: torch.Tensor, enabled: torch.Tensor,
                           qend: torch.Tensor, cost_table: torch.Tensor,
                           bp_enabled: bool, bp_penalty: int,
-                          syscall_rt_ps: int, lanes: Lanes) -> None:
+                          syscall_rt_ps: int, lanes: Lanes,
+                          p2p_slack_ps: "int | None" = None,
+                          p2p_round: "torch.Tensor | None" = None) -> None:
     L = trace.length
     bp_size = core.bp_bits.shape[1]
     idx = torch.clamp(core.idx, 0, L - 1).to(torch.int64)[:, None]
@@ -90,6 +123,12 @@ def lane_fetch_cost_plain(trace: DeviceTrace, core: CoreState,
     stream_end = (op == Op.NOP) | (op == Op.THREAD_EXIT)
     done_now = done | stream_end
     active = ~done_now & (core.clock_ps < qend)
+    if p2p_slack_ps is not None:
+        # hold a lane more than the slack ahead of a partner that is
+        # still running after this iteration's latch
+        partner = p2p_partner(p2p_round, done.shape[0])
+        ahead = core.clock_ps > core.clock_ps[partner] + p2p_slack_ps
+        active = active & ~(ahead & ~done_now[partner])
 
     is_branch = op == Op.BRANCH
     is_dynamic = (op >= Op.DYNAMIC_MISC) & (op < 20)
@@ -128,17 +167,25 @@ def lane_fetch_cost(trace: DeviceTrace, core: CoreState, done: torch.Tensor,
                     enabled: torch.Tensor, qend: torch.Tensor,
                     cost_table: torch.Tensor, *, bp_enabled: bool,
                     bp_penalty: int, syscall_rt_ps: int,
-                    lanes: Lanes) -> None:
-    """Fill `lanes`' fetch block (op … cost_ps) for one iteration."""
+                    lanes: Lanes, p2p_slack_ps: "int | None" = None,
+                    p2p_round: "torch.Tensor | None" = None) -> None:
+    """Fill `lanes`' fetch block (op … cost_ps) for one iteration.  With
+    `p2p_slack_ps` (the `lax_p2p` scheme) a lane more than the slack
+    ahead of its partner this round (`p2p_round`, int32[]) is inactive."""
     if done.device.type == "cpu":
         lane_fetch_cost_plain(trace, core, done, enabled, qend, cost_table,
-                              bp_enabled, bp_penalty, syscall_rt_ps, lanes)
+                              bp_enabled, bp_penalty, syscall_rt_ps, lanes,
+                              p2p_slack_ps, p2p_round)
         return
     if done.device.type != "cuda":
         raise ValueError(f"lane_fetch_cost: unsupported device {done.device}")
-    KERNEL.launch_bound(*bound_args(trace, core, done, enabled, qend,
-                                    cost_table, bp_enabled, bp_penalty,
-                                    syscall_rt_ps, lanes))
+    tensors, key = bound_args(trace, core, done, enabled, qend, cost_table,
+                              bp_enabled, bp_penalty, syscall_rt_ps, lanes)
+    if p2p_slack_ps is None:
+        KERNEL.launch_bound(tensors, key)
+    else:
+        KERNEL_P2P.launch_bound((*tensors, p2p_round),
+                                (*key, int(p2p_slack_ps)))
 
 
 def bound_args(trace, core, done, enabled, qend, cost_table, bp_enabled,

@@ -3,9 +3,10 @@
 Port of the parts of `graphite_tpu/trace/synthetic.py` this package's path
 uses: the traffic-pattern destination schedules of the reference's
 synthetic_network generator (`synthetic_network.cc:16-25,215-341`), the
-vectorized column assembler, `message_ring_batch` and
-`memory_stress_trace`.  Arrays are numpy, bit-equal to the JAX
-package's builders.
+vectorized column assembler, `message_ring_batch`,
+`memory_stress_trace` and the ping-pong microbenchmark
+(`ping_pong_trace`, BASELINE.json config 1).  Arrays are numpy, bit-equal
+to the JAX package's builders.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from graphite_tpu_torch.models.network_emesh import (
 )
 from graphite_tpu_torch.trace.schema import (
     _FIELDS, FLAG_MEM0_VALID, FLAG_MEM0_WRITE, FLAG_SIMPLE_MOV_LOAD, NO_REG,
-    Op, TraceBatch,
+    Op, TraceBatch, TraceBuilder,
 )
 
 
@@ -190,3 +191,18 @@ def memory_stress_trace(
     for f in ("rreg0", "rreg1", "wreg"):
         out[f][:] = NO_REG
     return TraceBatch(**out)
+
+
+def ping_pong_trace(n_tiles: int = 2, n_rounds: int = 100,
+                    packet_size: int = 8) -> TraceBatch:
+    """tests/apps/ping_pong: tile 0 and 1 bounce a message back and forth
+    (`graphite_tpu/trace/synthetic.py:187-198`); the other tiles idle."""
+    if n_tiles < 2:
+        raise ValueError("ping-pong needs at least two tiles")
+    builders = [TraceBuilder() for _ in range(n_tiles)]
+    for _ in range(n_rounds):
+        builders[0].send(1, packet_size)
+        builders[0].recv(1, packet_size)
+        builders[1].recv(0, packet_size)
+        builders[1].send(0, packet_size)
+    return TraceBatch.from_builders(builders)

@@ -64,6 +64,11 @@ def test_runs_without_jax_or_graphite_tpu():
         import graphite_tpu_torch.convert, graphite_tpu_torch.ops
         import graphite_tpu_torch.memory.engine
         import graphite_tpu_torch.models.iocoom
+        import graphite_tpu_torch.system
+        from graphite_tpu_torch.system import (
+            Log, StatisticsManager, load_checkpoint, save_checkpoint)
+        from graphite_tpu_torch.trace.benchmarks import BENCHMARKS
+        from graphite_tpu_torch.trace.synthetic import ping_pong_trace
         from graphite_tpu_torch.config.template import config_text
         from graphite_tpu_torch.trace.synthetic import memory_stress_trace
         sc = SimConfig(ConfigFile.from_string(
@@ -81,6 +86,18 @@ def test_runs_without_jax_or_graphite_tpu():
                        device="cpu").run()
         assert rm.mem_counters["l2_misses"].sum() > 0
         assert rs.mem_counters["l2_misses"].sum() > 0
+        # this slice: lax_p2p, the generators, a checkpoint round trip
+        pc = SimConfig(ConfigFile.from_string(
+            "[general]\\ntotal_cores = 16\\n[clock_skew_management]\\n"
+            "scheme = lax_p2p\\n"))
+        sp = Simulator(pc, BENCHMARKS["blackscholes"](16, 8),
+                       device="cpu")
+        import os, tempfile
+        ck = os.path.join(tempfile.mkdtemp(), "c.npz")
+        save_checkpoint(sp, ck)
+        load_checkpoint(sp, ck)
+        assert sp.run().total_instructions > 0
+        assert len(BENCHMARKS) == 14 and ping_pong_trace(4).n_tiles == 4
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "graphite_tpu")
                      and sys.modules[m] is not None)
@@ -150,8 +167,9 @@ def test_wrappers_refuse_other_devices():
 
 
 @pytest.mark.parametrize("what", [
-    "memory", "iocoom", "hop_by_hop", "atac", "lax_p2p", "barrier_host",
-    "stream", "telemetry", "profile", "hist", "dvfs_spec", "fft_memory"])
+    "memory", "iocoom", "hop_by_hop", "atac", "statistics_device",
+    "power_trace", "stream", "telemetry", "profile", "hist", "dvfs_spec",
+    "fft_memory"])
 def test_unsupported_configurations_raise(what):
     """Configurations outside the ported slices.  Since the memory slice,
     "memory" is a trace with memory operands under the MOSI protocol and
@@ -159,12 +177,28 @@ def test_unsupported_configurations_raise(what):
     both contention nets serve as the MEMORY net, "fft_memory" is the
     FFT's loads over a hop-by-hop MEMORY net under MOSI, and "hop_by_hop"
     and "atac" the FFT's loads with that net as the USER and the MEMORY
-    net under MOSI."""
+    net under MOSI.  Since the outputs slice ported lax_p2p and
+    barrier_host, their two cases are the statistics manager's
+    device-timeline backend ("statistics_device", the telemetry ring)
+    and its power trace ("power_trace", runtime energy)."""
     tb = fft_trace(16, points_per_tile=16)
     kw, sc = {}, cfg()
     item = {"memory": 8, "iocoom": 8, "hop_by_hop": 8, "atac": 8,
-            "lax_p2p": 4, "barrier_host": 4, "stream": 11, "telemetry": 12,
-            "profile": 12, "hist": 12, "dvfs_spec": 10, "fft_memory": 8}[what]
+            "statistics_device": 12, "power_trace": 10, "stream": 11,
+            "telemetry": 12, "profile": 12, "hist": 12, "dvfs_spec": 10,
+            "fft_memory": 8}[what]
+    if what in ("statistics_device", "power_trace"):
+        from graphite_tpu_torch.system import StatisticsManager
+
+        extra = ("[statistics_trace]\nenabled = true\n"
+                 "statistics = network_utilization\n"
+                 if what == "statistics_device" else
+                 "[runtime_energy_modeling/power_trace]\nenabled = true\n")
+        sim = Simulator(cfg(scheme="lax_barrier", extra=extra), tb,
+                        device="cpu")
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            StatisticsManager(sim)
+        return
     mosi = "[caching_protocol]\ntype = pr_l1_pr_l2_dram_directory_mosi\n"
     if what == "memory":
         tb.flags[0, 1] = FLAG_MEM0_VALID
@@ -181,10 +215,6 @@ def test_unsupported_configurations_raise(what):
         net = "emesh_hop_by_hop" if what == "hop_by_hop" else "atac"
         tb = fft_trace(16, points_per_tile=16, use_memory=True)
         sc = cfg(user=net, extra=mosi + f"[network]\nmemory = {net}")
-    elif what == "lax_p2p":
-        sc = cfg(scheme="lax_p2p")
-    elif what == "barrier_host":
-        kw = {"barrier_host": True}
     elif what == "stream":
         kw = {"stream": True}
     elif what == "dvfs_spec":
