@@ -8,9 +8,10 @@ toolkit; builds the kernels from `graphite_tpu_torch/csrc/` at first use.
 Phases, one JSON line each:
 
  1. device: the card, its power limit, torch/CUDA versions;
- 2. build: the eleven kernel libraries (twelve kernels: lane_fetch_cost
-    has a lax_p2p entry point), one `nvcc` each, in parallel, and what
-    `-Xptxas -v` says of each (registers, spills);
+ 2. build: the eleven kernel libraries (thirteen kernels:
+    lane_fetch_cost has a lax_p2p entry point, mem_home_start one for
+    MOSI and the limited schemes), one `nvcc` each, in parallel, and
+    what `-Xptxas -v` says of each (registers, spills);
  3. kernels: each kernel against its plain PyTorch version on the card,
     `torch.equal` on every output and every state tensor it updates —
     on every iteration of the first part of the full-width (1024-tile)
@@ -122,15 +123,51 @@ The outputs slice (lax_p2p, barrier_host, the generators, the outputs):
     and resumed on the card, equal to the uninterrupted run; the chunked
     StatisticsManager's files, card against CPU byte for byte.
 
-Then the kernels line (the eleven and `lane_fetch_cost[p2p]`), the
+MOSI and the four limited directory schemes on the private-L2 engine:
+22. edge states, each kernel against its plain version, each showing its
+    branch by the leaves that differ from the MSI full_map result of the
+    same state (`mem_home_start`: the cache-to-cache SH fetch from an
+    OWNED entry's owner and from the lowest sharer, the
+    INV_FLUSH_COMBINED supplier of an EX on SHARED and on OWNED, the
+    limited_no_broadcast displacement under MSI and MOSI, the owner as
+    the only victim, the MODIFIED entry at capacity, the ackwise and
+    limited_broadcast sweep to every tile — also under each contention
+    net, one sweep a home —, the limitless trap at a 700 MHz directory;
+    `mem_requester`: the upgrade of an OWNED line, a FLUSH;
+    `mem_requester_fill`: an OWNED victim, a FLUSH); under MOSI or a
+    limited scheme phase 3 launches `mem_home_start[ext]`, counted
+    apart;
+23. card against CPU: the 64-tile canneal (256-line footprint) under MOSI
+    with each limited scheme at k = 4, its first MOSI_CHECKED iterations
+    checked kernel by kernel, and the 16-tile stress trace under MOSI +
+    ackwise (k = 2) over each contention MEMORY net; every SimResults
+    field, the line census and `MemState.noc` equal (the CPU sides run
+    in the worker process, queued behind the MEMORY-net slice's);
+24. the three memory kernels timed at the companion's miss-heavy state
+    under MOSI + ackwise (k = 4), beside the same call's MSI times;
+25. the slice's main path checked at its own shapes: canneal at 1,024
+    tiles (4,096-line footprint) on MOSI + ackwise (k = 4) run to its
+    first quantum of MOSI_BURST broadcasts or more, then the MOSI_WINDOW
+    iterations of that quantum that hold the most broadcasts checked
+    kernel by kernel, and `mem_home_start[ext]` timed at its iteration
+    with the most broadcast rows and at one with none;
+26. the slice's main path: the same canneal once to completion from
+    launch counts at 0 (func_errors 0, dir_broadcasts > 0, phase 3
+    only through `mem_home_start[ext]`); then under
+    limited_no_broadcast and limitless, their invalidations and the
+    entries left over k.
+
+Then the kernels line (the eleven, `lane_fetch_cost[p2p]` and
+`mem_home_start[ext]`), the
 card's name and power limit, and last `{"ok": true, "device": {...}}`.
 Any failure exits non-zero before the last line.  Each phase's line
 carries `t_s`, the script's seconds so far, and `phase_s`, the seconds
 since the line before it.  Imports nothing of JAX or of the JAX package.
 To compare two trees on one card, run each tree's own copy of this script
 in one call (parent, change, change, parent); `python3 chip_smoke.py
---ab headline|companion|north_star TREE [TREE ...]` times the headline,
-the companion or the north star alone with the package of each tree,
+--ab headline|companion|north_star|mem_kernels TREE [TREE ...]` times the
+headline, the companion, the north star or the three memory kernels at
+the companion's miss-heavy state alone with the package of each tree,
 in turns (A B B A).
 """
 
@@ -162,11 +199,15 @@ REPLACES = {
     "atac_route": "graphite_tpu/models/network_atac.py:176",
     "mem_net_route": "graphite_tpu/memory/engine.py:251",
     "lane_fetch_cost[p2p]": "graphite_tpu/engine/step.py:253",
+    "mem_home_start[ext]": "graphite_tpu/memory/engine.py:2311",
 }
 # the headline's kernels (the memory slice's are MEM_KERNELS)
 KERNEL_ORDER = tuple(REPLACES)[:4]
 # lane_fetch_cost's lax_p2p instantiation, counted apart
 P2P_KERNEL = "lane_fetch_cost[p2p]"
+# mem_home_start's instantiation with the MOSI and scheme branches,
+# counted apart
+HOME_EXT = "mem_home_start[ext]"
 TIMING_AT = {"send_phase": 200, "receive_phase": 1060}
 RUNS = 5
 
@@ -1268,7 +1309,7 @@ def phase_profile(sim, init, start: int, wall_per_iter_s: float) -> dict:
 MEM_KERNELS = ("mem_requester", "mem_home_start", "mem_requester_fill",
                "iocoom_commit")
 COMPANION_POINTS = 512
-COMPANION_CHECKED = 150     # of the companion's 768 iterations (its
+COMPANION_CHECKED = 129     # of the companion's 768 iterations (its
 #                             first miss-heavy state is iteration 128)
 STRESS_CHECKED = 300
 MEM_RUNS = 5                # odd: the median is one run's wall
@@ -1380,17 +1421,30 @@ def mem_call(name, sim, st, ln, plain: bool) -> None:
         raise KeyError(name)
 
 
+def mem_stat_key(name, sim) -> str:
+    """The kernel a memory unit launches: `mem_home_start[ext]` under
+    MOSI or a limited directory scheme."""
+    import importlib
+
+    mod = importlib.import_module("graphite_tpu_torch.ops.mem_home_start")
+    if name == "mem_home_start" and hasattr(mod, "kernel_for"):
+        # (`--ab` also runs trees from before the second entry point)
+        return mod.kernel_for(sim.models.mem).name
+    return name
+
+
 def check_mem_kernel(name, sim, st, ln, stats) -> None:
     """`name`'s plain version on a copy of (state, lanes), its kernel on
     the originals; every leaf of both must be equal."""
     st2, ln2 = st.clone(), ln.clone()
     mem_call(name, sim, st2, ln2, plain=True)
     mem_call(name, sim, st, ln, plain=False)
-    err = max_abs_err(_Pair(st, ln), _Pair(st2, ln2), name)
-    stats[name]["checks"] += 1
-    stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    key = mem_stat_key(name, sim)
+    err = max_abs_err(_Pair(st, ln), _Pair(st2, ln2), key)
+    stats[key]["checks"] += 1
+    stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
     if err:
-        raise AssertionError(f"{name}: kernel != plain version "
+        raise AssertionError(f"{key}: kernel != plain version "
                              f"(max abs err {err})")
 
 
@@ -1655,11 +1709,22 @@ def mem_bound(name, sim, st, ln) -> tuple:
         rows = 8 * (mp.l1i.num_ways + mp.l1d.num_ways + mp.l2.num_ways)
         nbytes = T * 20 + start * (2 * rows + 110 + 60 + 13 + 8)
     elif name == "mem_home_start":
+        from graphite_tpu_torch import ops
+
         live = ms.mail.req_type != 0
         homes = torch.unique(ms.mail.req_home[live]).numel()
         homes += n(ms.txn.saved_valid & ~ms.txn.active)
+        # the FWD cells this call writes (13 B each; a broadcast sweep's
+        # row writes all T), from its plain version on a copy
+        st2, ln2 = st.clone(), ln.clone()
+        ops.mem_home_start_plain(sim.models.mem, st2.mem,
+                                 st2.models_enabled, ln2.progress)
+        m2 = st2.mem.mail
+        cells = n((m2.fwd_type != ms.mail.fwd_type)
+                  | (m2.fwd_line != ms.mail.fwd_line)
+                  | (m2.fwd_time != ms.mail.fwd_time))
         nbytes = T * 13 + T * 2 + homes * (
-            mp.dir_ways * 8 + 2 * mp.sharer_words * 4 + 8 + 100)
+            mp.dir_ways * 8 + 2 * mp.sharer_words * 4 + 8 + 100) + cells * 13
     elif name == "mem_requester_fill":
         fills = n((ms.req.phase == 1) & (ms.mail.rep_type != 0))
         rows = 8 * (mp.l2.num_ways + mp.l1d.num_ways)
@@ -1693,8 +1758,7 @@ def time_mem_kernels(sim, st, ln) -> dict:
         out[name].update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                          ops=nops)
 
-    dummy = {k: {"checks": 0, "max_abs_err": 0}
-             for k in KERNEL_ORDER + MEM_KERNELS}
+    dummy = new_stats()
     check_kernel("lane_fetch_cost", ctx, st, ln, dummy)
     timed("mem_requester")
     mem_call("mem_requester", sim, st, ln, plain=False)
@@ -1816,6 +1880,9 @@ def phase_companion(dev) -> dict:
         missing = [k for k in KERNEL_ORDER + MEM_KERNELS if counts[k] <= 0]
         if missing:
             raise AssertionError(f"companion never launched {missing}")
+        if counts[HOME_EXT]:
+            raise AssertionError(f"the MSI full_map companion launched "
+                                 f"{HOME_EXT}")
     if not bool(sim.state.done.all()):
         raise AssertionError("companion: not every tile is done")
     med = sorted(walls)[len(walls) // 2]
@@ -1877,14 +1944,14 @@ NOC_KERNELS = ("noc_route", "atac_route")
 NOC_NETS = {"noc_route": "emesh_hop_by_hop", "atac_route": "atac"}
 RADIX_TILES = 256
 RADIX_KEYS = 1024
-RADIX_CHECKED = 150         # its first all-to-all state is iteration 30
+RADIX_CHECKED = 100         # its first all-to-all state is iteration 30
 RADIX_RUNS = 3
 
 
 def new_stats() -> dict:
     return {k: {"checks": 0, "max_abs_err": 0}
             for k in KERNEL_ORDER + MEM_KERNELS + NOC_KERNELS
-            + ("mem_net_route", P2P_KERNEL)}
+            + ("mem_net_route", P2P_KERNEL, HOME_EXT)}
 
 
 def radix_sim(n_tiles, network, device, *, keys_per_tile=RADIX_KEYS,
@@ -2212,7 +2279,7 @@ def phase_radix(dev, name) -> tuple:
 
 MEM_NETS = ("emesh_hop_by_hop", "atac")
 NET_EXTRA = "[network]\nmemory = {net}\n"
-NET_CHECKED = 150           # of each routed companion's iterations (its
+NET_CHECKED = 129           # of each routed companion's iterations (its
 #                             first miss-heavy state is iteration 128)
 BIG_TILES = 1024            # the widest edge state
 
@@ -2836,7 +2903,7 @@ P2P_SLACK = "[clock_skew_management/lax_p2p]\nslack = {ns}\n"
 # work and no lane can be held; from the receives on ~250 lanes an
 # iteration are.  Checked: P2P_CHECKED iterations from P2P_FIRST.
 P2P_FIRST = 1024
-P2P_CHECKED = 300
+P2P_CHECKED = 150
 # the kernels timed at a send state and at a receive state with holds
 P2P_TIMING_AT = {"send_phase": 200, "receive_phase": P2P_FIRST + 100}
 P2P_RUNS = 3                # and as many lax runs, in turns
@@ -3333,6 +3400,534 @@ def phase_outputs(dev) -> dict:
     return out
 
 
+# --- MOSI and the directory schemes on the private-L2 engine -------------
+
+MSI = "pr_l1_pr_l2_dram_directory_msi"
+MOSI = "pr_l1_pr_l2_dram_directory_mosi"
+MOSI_SCHEMES = ("limited_no_broadcast", "ackwise", "limited_broadcast",
+                "limitless")
+MOSI_K = 4                  # max_hw_sharers of the canneal runs
+MOSI_CHECKED = 30           # checked iterations of each 64-tile canneal
+# a 700 MHz DIRECTORY domain: the limitless trap's ceil-division shows
+ODD_DIR = ("[dvfs]\nsynchronization_delay = 2\ndomains = \"<1.0, CORE, "
+           "L1_ICACHE, L1_DCACHE, NETWORK_USER><0.7, L2_CACHE, DIRECTORY, "
+           "NETWORK_MEMORY>\"\n[limitless]\nsoftware_trap_penalty = 201\n")
+MOSI_E2E_CASES = tuple(f"canneal64/{s}" for s in MOSI_SCHEMES) + tuple(
+    f"memstress16_ackwise2/{net}" for net in MEM_NETS)
+
+
+def scheme_extra(scheme, k=MOSI_K, protocol=MOSI) -> str:
+    return (f"[caching_protocol]\ntype = {protocol}\n[dram_directory]\n"
+            f"directory_type = {scheme}\nmax_hw_sharers = {k}\n")
+
+
+def canneal64(device, scheme):
+    """The canneal trace at 64 tiles over a 256-line footprint (about 64
+    loads a line, so sharers overflow k = 4) under MOSI and `scheme`."""
+    from graphite_tpu_torch.trace.benchmarks import canneal_trace
+
+    return mem_sim(64, canneal_trace(64, footprint_lines=256), device,
+                   clock_scheme="lax_barrier", extra=scheme_extra(scheme))
+
+
+def mosi_e2e_sim(name, where):
+    kind, arg = name.split("/")
+    if kind == "canneal64":
+        return canneal64(where, arg)
+    return memstress(16, where, extra=scheme_extra("ackwise", 2)
+                     + NET_EXTRA.format(net=arg))
+
+
+def mosi_e2e_run(name, where) -> tuple:
+    """One case of `phase_mosi_end_to_end` on `where`, run to completion:
+    (SimResults, iterations, wall s, the line census of its first 64
+    requested lines, the MEMORY net's queue rows or None)."""
+    sim = mosi_e2e_sim(name, where)
+    t0 = time.perf_counter()
+    r = sim.run()
+    lines = sorted({int(x) for x in sim.state.mem.req.line.cpu()})
+    noc = sim.state.mem.noc
+    return (r, sim.last_n_iterations, time.perf_counter() - t0,
+            sim.line_census(lines[:64]),
+            None if noc is None else mem_noc_rows(noc).cpu().numpy())
+
+
+def start_mosi_cpu(pool) -> dict:
+    """The CPU sides of `phase_mosi_end_to_end`, queued on `pool` behind
+    the MEMORY-net cases (they run while the card works on later
+    phases)."""
+    return {name: pool.submit(mosi_e2e_run, name, "cpu")
+            for name in MOSI_E2E_CASES}
+
+
+def phase_mosi_end_to_end(dev, card: str, stats, cpu_runs: dict) -> None:
+    """Card against CPU: the 64-tile canneal under MOSI with each of the
+    four limited schemes (k = 4), its first MOSI_CHECKED iterations
+    checked kernel by kernel first, and the 16-tile stress trace under
+    MOSI + ackwise (k = 2) over each contention MEMORY net; every
+    SimResults field, n_quanta, last_n_iterations, the line census and
+    `MemState.noc` equal."""
+    import numpy as np
+
+    for name in MOSI_E2E_CASES:
+        checked = 0
+        if name.startswith("canneal64"):
+            checked = run_checked(mosi_e2e_sim(name, dev), MOSI_CHECKED,
+                                  stats)
+        rc, ic, wc, cc, qc = mosi_e2e_run(name, dev)
+        rp, ip, wp, cp, qp = cpu_runs[name].result()
+        bad = [f for f in RESULT_FIELDS
+               if not result_field_equal(getattr(rc, f), getattr(rp, f))]
+        if ic != ip:
+            bad.append("last_n_iterations")
+        if cc != cp:
+            bad.append("line_census")
+        if (qc is None) != (qp is None) or (
+                qc is not None and not np.array_equal(qc, qp)):
+            bad.append("mem.noc")
+        mc = rc.mem_counters
+        emit({"phase": "mosi_end_to_end", "case": name, "card": card,
+              "equal": not bad, "bad": bad, "checked_iterations": checked,
+              "iterations": ic, "n_quanta": rc.n_quanta, "card_s": wc,
+              "cpu_s": wp, "total_instructions": rc.total_instructions,
+              "completion_time_ps": rc.completion_time_ps,
+              "func_errors": rc.func_errors,
+              **{k: int(mc[k].sum()) for k in (
+                  "dir_broadcasts", "invalidations", "dram_writes",
+                  "dir_accesses")}})
+        if bad:
+            raise AssertionError(f"card != cpu on {name}: {bad}")
+        if rc.func_errors:
+            raise AssertionError(f"{name}: functional errors")
+
+
+# name -> (protocol, scheme, k, entry state, owner, sharers, request type)
+HOME_CASES = {
+    "sh_fetch_owner": (MOSI, "full_map", 2, 3, 2, (2, 9), 1),
+    "sh_fetch_lowest_sharer": (MOSI, "full_map", 2, 1, -1, (3, 9, 12), 1),
+    "flush_pick_shared": (MOSI, "full_map", 2, 1, -1, (3, 9, 12), 2),
+    "flush_pick_owned": (MOSI, "full_map", 2, 3, 9, (3, 9), 2),
+    "sh_over_msi": (MSI, "limited_no_broadcast", 2, 1, -1, (3, 9), 1),
+    "sh_over_mosi_shared": (MOSI, "limited_no_broadcast", 2, 1, -1, (3, 9),
+                            1),
+    "sh_over_mosi_owned": (MOSI, "limited_no_broadcast", 2, 3, 3, (3, 9), 1),
+    "victim_is_owner": (MOSI, "limited_no_broadcast", 1, 3, 3, (3,), 1),
+    "sh_over_m": (MOSI, "limited_no_broadcast", 1, 2, 3, (3,), 1),
+    "over_bc_ackwise": (MOSI, "ackwise", 2, 1, -1, (3, 9, 12), 2),
+    "over_bc_limited_broadcast": (MSI, "limited_broadcast", 2, 1, -1,
+                                  (3, 9, 12), 2),
+    "limitless_trap": (MSI, "limitless", 2, 1, -1, (3, 9, 12), 1),
+}
+EDGE_HOME, EDGE_REQ = 5, 7
+
+
+def home_state(sim, case):
+    """A copy of `sim`'s state in which home EDGE_HOME holds its line in
+    the case's directory entry and EDGE_REQ's request for it is pending
+    (every home of a contention net's case does the same with its own
+    line, so that the routed form carries T rows)."""
+    import torch
+
+    from graphite_tpu_torch.memory.common import pack_bits
+    from graphite_tpu_torch.ops.mem_home_start import dir_write
+
+    _, _, _, dstate, owner, sharers, rtype = case
+    st, ln = sim.state.clone(), sim._lanes.clone()
+    mp, ms, dev = sim.params.mem, st.mem, sim.device
+    T = mp.n_tiles
+    tiles = torch.arange(T, device=dev)
+    homes = [EDGE_HOME] if ms.noc is None else list(range(T))
+    line = tiles + T * 40
+    mask = torch.zeros(T, dtype=torch.bool, device=dev)
+    share = torch.zeros((T, T), dtype=torch.bool, device=dev)
+    own = torch.full((T,), -1, dtype=torch.int64, device=dev)
+    for h in homes:
+        r = (h + EDGE_REQ - EDGE_HOME) % T
+        mask[h] = True
+        share[h, [(s + h - EDGE_HOME) % T for s in sharers]] = True
+        own[h] = -1 if owner < 0 else (owner + h - EDGE_HOME) % T
+        ms.mail.req_type[r] = rtype
+        ms.mail.req_home[r] = h
+        ms.mail.req_line[r] = int(line[h])
+        ms.mail.req_time[r] = 3_000_000 + 1000 * h
+    dir_write(ms, tiles, line % mp.dir_sets, torch.zeros_like(tiles), mask,
+              tags=line, dstate=torch.full_like(line, dstate), owner=own,
+              sharers=pack_bits(share, mp.sharer_words),
+              nsharers=share.sum(dim=1).to(torch.int32))
+    return st, ln
+
+
+def msi_full_map(sim):
+    """The MSI full_map context of `sim`'s memory parameters (the
+    reference every edge state's branch differs from)."""
+    from graphite_tpu_torch.memory.context import MemCtx
+
+    return MemCtx(dataclasses.replace(sim.params.mem, protocol=MSI,
+                                      dir_type="full_map"), sim.device)
+
+
+def branch_shown(a, b) -> list:
+    """The memory-state leaves in which two results differ."""
+    import torch
+
+    lb = dict(leaves(b))
+    return [k for k, x in leaves(a) if not torch.equal(x, lb[k])]
+
+
+def mosi_edge_cases(dev, stats) -> dict:
+    """Hand-set states where each branch of the slice fires, each kernel
+    against its plain version on them, and the leaves in which the result
+    differs from the MSI full_map result of the same state (each case
+    must differ): `mem_home_start` on every HOME_CASES state (under the
+    hop counter; the broadcast sweep also under each contention net, one
+    sweep a home), `mem_requester` on lanes writing lines their L2 holds
+    OWNED (the upgrade's FLUSH), and `mem_requester_fill` on replies
+    whose L2 set is full of OWNED lines (the victim's FLUSH)."""
+    import torch
+
+    from graphite_tpu_torch import ops
+    from graphite_tpu_torch.memory import cache_array as ca
+    from graphite_tpu_torch.trace.schema import TraceBatch, TraceBuilder
+
+    out, bad = {}, []
+    T = 16
+
+    def own_lines_batch():
+        bs = [TraceBuilder() for _ in range(T)]
+        for t, b in enumerate(bs):
+            b.store(0x100000 + t * 64 * 64, 8)
+            b.load(0x200000 + t * 64 * 64, 8)
+        return TraceBatch.from_builders(bs)
+
+    for name, case in HOME_CASES.items():
+        protocol, scheme, k = case[:3]
+        nets = (None,) + (MEM_NETS if name == "over_bc_ackwise" else ())
+        for net in nets:
+            extra = scheme_extra(scheme, k, protocol) + ODD_DIR + (
+                "" if net is None else NET_EXTRA.format(net=net))
+            sim = memstress(T, dev, n_accesses=4, extra=extra)
+            st, ln = home_state(sim, case)
+            ref = st.clone()
+            ops.mem_home_start_plain(msi_full_map(sim), ref.mem,
+                                     ref.models_enabled,
+                                     ln.clone().progress)
+            check_mem_kernel("mem_home_start", sim, st, ln, stats)
+            label = name if net is None else f"{name}/{net}"
+            fwd = st.mem.mail.fwd_type[:, EDGE_HOME]
+            out[label] = {
+                "copies": int((fwd != 0).sum()),
+                "messages": sorted({int(m) for m in fwd if m}),
+                "dir_broadcasts": int(st.mem.counters.dir_broadcasts.sum()),
+                "differs_from_msi_full_map": branch_shown(st.mem, ref.mem)}
+            if not out[label]["differs_from_msi_full_map"]:
+                bad.append(label)
+            if name.startswith("over_bc") and out[label]["copies"] != T:
+                bad.append(f"{label}: {out[label]['copies']} copies")
+
+    # the OWNED upgrade: every lane writes a line its L2 holds OWNED
+    for state in (ca.OWNED, ca.SHARED):
+        sim = mem_sim(T, own_lines_batch(), dev, extra=scheme_extra(
+            "full_map"))
+        ctx = sim_ctx(sim)
+        st, ln = sim.state.clone(), sim._lanes.clone()
+        check_kernel("lane_fetch_cost", ctx, st, ln, stats)
+        mp = sim.params.mem
+        for t in range(T):
+            line = (0x100000 + t * 64 * 64) >> mp.line_bits
+            st.mem.l2.meta[t, line % mp.l2.num_sets, 0] = ca.pack(
+                line, state, 0)
+        check_mem_kernel("mem_requester", sim, st, ln, stats)
+        ev = st.mem.mail.evict_type
+        out[f"owned_upgrade/{'OWNED' if state == ca.OWNED else 'SHARED'}"] = {
+            "flush_rep": int((ev == 7).sum()), "inv_rep": int((ev == 6)
+                                                              .sum())}
+    if out["owned_upgrade/OWNED"]["flush_rep"] != T or out[
+            "owned_upgrade/SHARED"]["inv_rep"] != T:
+        bad.append("owned_upgrade")
+
+    # the OWNED victim: every lane's reply lands in an L2 set full of
+    # OWNED lines
+    for state in (ca.OWNED, ca.SHARED):
+        sim = mem_sim(T, own_lines_batch(), dev, extra=scheme_extra(
+            "full_map"))
+        ctx = sim_ctx(sim)
+        st, ln = sim.state.clone(), sim._lanes.clone()
+        check_kernel("lane_fetch_cost", ctx, st, ln, stats)
+        mp, ms = sim.params.mem, st.mem
+        S, W = mp.l2.num_sets, mp.l2.num_ways
+        for t in range(T):
+            line = (0x200000 + t * 64 * 64) >> mp.line_bits
+            for w in range(W):
+                ms.l2.meta[t, line % S, w] = ca.pack(
+                    line + (w + 1) * S, state, w)
+            ms.req.phase[t] = 1
+            ms.req.slot[t] = 1
+            ms.req.line[t] = line
+            ms.req.component[t] = 2
+            ms.mail.rep_type[t] = 9
+            ms.mail.rep_time[t] = 4_000_000 + t
+        check_mem_kernel("mem_requester_fill", sim, st, ln, stats)
+        ev = st.mem.mail.evict_type
+        out[f"owned_victim/{'OWNED' if state == ca.OWNED else 'SHARED'}"] = {
+            "flush_rep": int((ev == 7).sum()), "inv_rep": int((ev == 6)
+                                                              .sum())}
+    if out["owned_victim/OWNED"]["flush_rep"] != T or out[
+            "owned_victim/SHARED"]["inv_rep"] != T:
+        bad.append("owned_victim")
+    del sim
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"MOSI edge states missed their branch: {bad}")
+    return out
+
+
+def mosi_kernel_times(dev) -> dict:
+    """The three memory kernels timed at the companion's first miss-heavy
+    state under MOSI + ackwise (k = 4), reached by the step unchecked
+    (the MSI times come from the same call's `memory_kernel` lines)."""
+    from graphite_tpu_torch.engine.step import subquantum_iteration
+    from graphite_tpu_torch.trace.benchmarks import fft_trace
+
+    sim = mem_sim(64, fft_trace(64, points_per_tile=COMPANION_POINTS,
+                                use_memory=True), dev, core="iocoom",
+                  extra=scheme_extra("ackwise"))
+    st, ln, qend = sim.state, sim._lanes, sim_qend(sim)
+    for at in range(COMPANION_CHECKED):
+        if miss_heavy(sim, st):
+            break
+        subquantum_iteration(sim.params, sim.device_trace, st, qend, ln,
+                             sim._cost_table, sim.models)
+    else:
+        raise AssertionError("no MOSI companion iteration is miss-heavy")
+    t = time_mem_kernels(sim, st, ln)
+    return {"miss_heavy_at": at,
+            "timings": {k: t[k] for k in MEM_KERNELS[:3]}}
+
+
+def overflowed_entries(sim, k) -> int:
+    """Directory entries holding more than k sharers at the end of a run
+    (the entries a limitless directory serves in software)."""
+    from graphite_tpu_torch.memory.common import dir_nsh, dir_tag
+
+    e = sim.state.mem.directory.entry
+    return int(((dir_tag(e) >= 0) & (dir_nsh(e) > k)).sum())
+
+
+MOSI_WINDOW = 40            # checked iterations of the 1,024-tile canneal
+#                             at its densest broadcasts
+MOSI_BURST = 64             # broadcasts of the quantum they are taken from
+
+
+def count_sum(sim, name) -> int:
+    return int(getattr(sim.state.mem.counters, name).sum())
+
+
+def quantum_end(sim):
+    """The boundary `run_simulation` gives the quantum that a
+    `run_chunk(1)` call starts from this state (its previous boundary 0)."""
+    import torch
+
+    from graphite_tpu_torch.engine.loop import BIG
+
+    q = sim.quantum_ps
+    if q is None:
+        return sim_qend(sim)
+    st = sim.state
+    pending = torch.where(~st.done, st.core.clock_ps, BIG).min()
+    boundary = (torch.div(pending, q, rounding_mode="floor") + 1) * q
+    return torch.clamp(boundary, min=q)
+
+
+def event_ms(fn, restore, n: int) -> float:
+    """Median device time of one call from the restored state, between
+    two CUDA events (the restore, enqueued first, outlasts the call's
+    enqueue, so the call waits on the card, not on the host)."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        restore()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def home_start_at(sim, ctx, st, ln) -> dict:
+    """`mem_home_start`'s times and bound in the iteration that starts
+    at (st, ln), at the state it meets there (after phases 1-2); the
+    state is left as the kernel's call leaves it.  Timed with events: a
+    graph of 100 calls would restore the 1,024-tile directory (GBs) 100
+    times around a call of µs."""
+    from graphite_tpu_torch.memory import engine as me
+
+    check_kernel("lane_fetch_cost", ctx, st, ln, new_stats())
+    mem_call("mem_requester", sim, st, ln, plain=False)
+    me.home_evictions(sim.models.mem, st.mem, st.models_enabled,
+                      ln.progress)
+    tensors = kernel_tensors("mem_home_start", sim, ctx, st, ln)
+    saved = [t.clone() for t in tensors]
+
+    def restore():
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+
+    def call():
+        mem_call("mem_home_start", sim, st, ln, plain=False)
+
+    def plain():
+        mem_call("mem_home_start", sim, st, ln, plain=True)
+
+    out = {"us": event_ms(call, restore, 21) * 1e3,
+           "plain_us": host_ms(plain, restore, 5, sync=True) * 1e3}
+    restore()
+    b_ms, b_by, nbytes, _ = mem_bound("mem_home_start", sim, st, ln)
+    before = count_sum(sim, "dir_broadcasts")
+    call()
+    del saved
+    return {**out, "bound_us": b_ms * 1e3, "bound_by": b_by,
+            "bytes": nbytes,
+            "broadcasts": count_sum(sim, "dir_broadcasts") - before}
+
+
+def phase_mosi_window(dev, batch, stats) -> dict:
+    """The slice's main path checked at its own shapes: canneal at 1,024
+    tiles on MOSI + ackwise (k = 4), run through `run_chunk(1)` to the
+    first quantum that broadcasts MOSI_BURST times or more; that quantum
+    replayed from its start, iteration by iteration at its boundary, to
+    count each iteration's broadcasts; then the MOSI_WINDOW iterations
+    that hold the most of them, every kernel checked against its plain
+    version (max abs err 0, at least one broadcast inside); and
+    `mem_home_start[ext]` timed at the iteration with the most broadcast
+    rows and at one with none."""
+    import torch
+
+    from graphite_tpu_torch.engine.step import subquantum_iteration
+
+    sim = mem_sim(1024, batch, dev, clock_scheme="lax_barrier",
+                  extra=scheme_extra("ackwise"))
+    t0 = time.perf_counter()
+    quanta = 0
+    while True:
+        start = sim.state.clone()
+        before = count_sum(sim, "dir_broadcasts")
+        done, n = sim.run_chunk(1)
+        quanta += n
+        in_quantum = count_sum(sim, "dir_broadcasts") - before
+        if in_quantum >= MOSI_BURST:
+            break
+        if done or not n:
+            raise AssertionError(f"canneal/mosi/ackwise: no quantum "
+                                 f"broadcasts {MOSI_BURST} times")
+    iters = sim.last_n_iterations
+    find_s = time.perf_counter() - t0
+
+    def replay(n):
+        """The quantum's state after its first n iterations, and the
+        iteration context at its boundary."""
+        sim.state = start.clone()
+        qend = quantum_end(sim)
+        for _ in range(n):
+            subquantum_iteration(sim.params, sim.device_trace, sim.state,
+                                 qend, sim._lanes, sim._cost_table,
+                                 sim.models)
+        return Ctx(sim.params, sim.device_trace, qend, sim._cost_table,
+                   sim.models)
+
+    # each iteration's broadcasts
+    ctx = replay(0)
+    per_it = []
+    for _ in range(iters):
+        b0 = count_sum(sim, "dir_broadcasts")
+        subquantum_iteration(sim.params, sim.device_trace, sim.state,
+                             ctx.qend, sim._lanes, sim._cost_table,
+                             sim.models)
+        per_it.append(count_sum(sim, "dir_broadcasts") - b0)
+    width = MOSI_WINDOW
+    sums = [sum(per_it[i:i + width]) for i in range(max(1, iters - width
+                                                        + 1))]
+    at = max(range(len(sums)), key=sums.__getitem__)
+    busiest = max(range(iters), key=per_it.__getitem__)
+    quiet = per_it.index(0) if 0 in per_it else None
+    timed = {}
+    for name, it in (("most_broadcasts", busiest), ("none", quiet)):
+        if it is not None:
+            ctx = replay(it)
+            timed[name] = {"iteration": it,
+                           **home_start_at(sim, ctx, sim.state, sim._lanes)}
+    ctx = replay(at)
+    st, ln = sim.state, sim._lanes
+    before = count_sum(sim, "dir_broadcasts")
+    t0 = time.perf_counter()
+    checked = 0
+    for _ in range(width):
+        checked_iteration(ctx, st, ln, stats, sim=sim)
+        checked += 1
+        if bool(st.done.all()):
+            break
+    torch.cuda.synchronize()
+    out = {"workload": "canneal/mosi/ackwise",
+           "tiles": sim.params.n_tiles,
+           "sharer_words": sim.params.mem.sharer_words,
+           "quanta_run": quanta, "find_s": find_s,
+           "quantum_iterations": iters,
+           "quantum_broadcasts": in_quantum,
+           "replayed_broadcasts": sum(per_it),
+           "window_from_iteration": at, "checked_iterations": checked,
+           "checked_s": time.perf_counter() - t0,
+           "broadcasts_in_window": count_sum(sim, "dir_broadcasts")
+           - before,
+           "home_start": timed}
+    del sim, start, st, ln
+    torch.cuda.empty_cache()
+    if out["broadcasts_in_window"] <= 0 or (
+            timed["most_broadcasts"]["broadcasts"] <= 0):
+        raise AssertionError("canneal/mosi/ackwise: no broadcast in the "
+                             "checked window")
+    return out
+
+
+def phase_mosi_full_width(dev, batch, build_s) -> list:
+    """canneal at 1,024 tiles (`batch`: 4,096-line footprint, 64 swaps a
+    tile, built in `build_s`) on `config_text(1024, shared_mem=True,
+    clock_scheme="lax_barrier")` under MOSI with an ackwise directory of
+    k = 4, the slice's main path, once to completion with the launch
+    counts from 0 (func_errors 0, at least one broadcast, phase 3 only
+    through `mem_home_start[ext]`); then the same under
+    limited_no_broadcast and limitless."""
+    import torch
+
+    rows = []
+    for scheme in ("ackwise", "limited_no_broadcast", "limitless"):
+        sim = mem_sim(1024, batch, dev, clock_scheme="lax_barrier",
+                      extra=scheme_extra(scheme))
+        row = workload_row(f"canneal/mosi/{scheme}", sim, dev,
+                           ("lane_fetch_cost", "barrier_sync", "lane_commit",
+                            "mem_requester", HOME_EXT, "mem_requester_fill"))
+        if row["launches"]["mem_home_start"]:
+            raise AssertionError(f"{row['workload']} launched the MSI "
+                                 "full_map form of mem_home_start")
+        cnt = sim.state.mem.counters
+        row.update(scheme=scheme, max_hw_sharers=MOSI_K,
+                   trace_build_s=build_s,
+                   overflowed_entries=overflowed_entries(sim, MOSI_K),
+                   **{k: int(getattr(cnt, k).sum()) for k in (
+                       "dir_broadcasts", "invalidations", "dram_writes",
+                       "dram_reads", "dir_accesses", "evictions")})
+        if row["func_errors"]:
+            raise AssertionError(f"{row['workload']}: functional errors")
+        if scheme == "ackwise" and row["dir_broadcasts"] <= 0:
+            raise AssertionError("canneal/mosi/ackwise: no broadcast")
+        rows.append(row)
+        del sim
+        torch.cuda.empty_cache()
+    return rows
+
+
 def net_kernel_us(t: dict) -> dict:
     """A `time_net_kernels` entry in µs."""
     out = {"us": t["ms"] * 1e3, "call_us": t["call_ms"] * 1e3,
@@ -3370,7 +3965,25 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to run",
               file=sys.stderr)
         return 2
-    from graphite_tpu_torch import ops   # fails outside the repo
+    from graphite_tpu_torch import ops   # noqa: F401 (fails outside the repo)
+
+    # the one worker process (on one thread) that runs the CPU sides of
+    # the card-vs-CPU cases while the card works
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=one_thread)
+    try:
+        return phases(pool)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def phases(pool) -> int:
+    """Every phase in order, then the kernels line, the card's line and
+    the last line; `pool` runs the CPU sides of the card-vs-CPU cases."""
+    import torch
+
+    from graphite_tpu_torch import ops
     from graphite_tpu_torch.ops import build
 
     dev = torch.device("cuda", 0)
@@ -3482,24 +4095,20 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # the contention nets as the MEMORY net: the MSI engine's routes; the
-    # CPU sides of its card-vs-CPU cases run meanwhile in one process
-    pool = concurrent.futures.ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"),
-        initializer=one_thread)
-    try:
-        cpu_runs = start_net_e2e_cpu(pool)
-        nk = phase_memory_net_kernels(dev, stats)
-        for net in MEM_NETS:
-            emit({"phase": "memory_net_kernel", "memory_net": net,
-                  "card": smi,
-                  **{k: v for k, v in nk[net].items() if k != "timings"},
-                  **{name: net_kernel_us(t)
-                     for name, t in nk[net]["timings"].items()}})
-        emit({"phase": "memory_net_edge_cases", "card": smi,
-              "cases": mem_net_edge_cases(dev, stats)})
-        phase_memory_net_end_to_end(dev, smi, cpu_runs)
-    finally:
-        pool.shutdown(cancel_futures=True)
+    # CPU sides of its card-vs-CPU cases, and then of the MOSI slice's,
+    # run meanwhile in one process
+    cpu_runs = start_net_e2e_cpu(pool)
+    mosi_cpu = start_mosi_cpu(pool)
+    nk = phase_memory_net_kernels(dev, stats)
+    for net in MEM_NETS:
+        emit({"phase": "memory_net_kernel", "memory_net": net,
+              "card": smi,
+              **{k: v for k, v in nk[net].items() if k != "timings"},
+              **{name: net_kernel_us(t)
+                 for name, t in nk[net]["timings"].items()}})
+    emit({"phase": "memory_net_edge_cases", "card": smi,
+          "cases": mem_net_edge_cases(dev, stats)})
+    phase_memory_net_end_to_end(dev, smi, cpu_runs)
     ncomp = {}
     for net in MEM_NETS:
         ncomp[net], nsim, ninit = phase_net_companion(dev, net)
@@ -3548,13 +4157,47 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "outputs", "card": smi, **phase_outputs(dev)})
 
+    # MOSI and the four limited directory schemes on the private-L2 engine
+    emit({"phase": "mosi_edge_cases", "card": smi,
+          "cases": mosi_edge_cases(dev, stats)})
+    phase_mosi_end_to_end(dev, smi, stats, mosi_cpu)
+    mt = mosi_kernel_times(dev)
+    for name, t in mt["timings"].items():
+        msi = minfo["timings"][name]
+        emit({"phase": "mosi_kernel",
+              "name": HOME_EXT if name == "mem_home_start" else name,
+              "card": smi,
+              "state": "companion miss-heavy, MOSI + ackwise (k = 4)",
+              "miss_heavy_at": mt["miss_heavy_at"],
+              "mosi_ackwise": {"us": t["ms"] * 1e3,
+                               "call_us": t["call_ms"] * 1e3,
+                               "plain_us": t["plain_ms"] * 1e3,
+                               "bound_us": t["bound_ms"] * 1e3,
+                               "bytes": t["bytes"]},
+              "msi_full_map_us": msi["ms"] * 1e3})
+    torch.cuda.empty_cache()
+    from graphite_tpu_torch.trace.benchmarks import canneal_trace
+
+    t0 = time.perf_counter()
+    canneal = canneal_trace(1024)
+    canneal_s = time.perf_counter() - t0
+    emit({"phase": "mosi_window", "card": smi,
+          **phase_mosi_window(dev, canneal, stats)})
+    mosi_full = phase_mosi_full_width(dev, canneal, canneal_s)
+    for row in mosi_full:
+        emit({"phase": "mosi_full_width", "card": smi, **row})
+
     rows = []
     send = kinfo["timings"]["send_phase"]
     for name in KERNEL_ORDER + MEM_KERNELS + NOC_KERNELS + (
-            "mem_net_route", P2P_KERNEL):
+            "mem_net_route", P2P_KERNEL, HOME_EXT):
         mem = name in MEM_KERNELS
         if name == P2P_KERNEL:
             tm, path = p2p_t["send_phase"]["lane_fetch_cost"], p2p_full
+        elif name == HOME_EXT:
+            # timed at the MOSI + ackwise companion's miss-heavy state;
+            # launched by the 1,024-tile MOSI + ackwise canneal
+            tm, path = mt["timings"]["mem_home_start"], mosi_full[0]
         elif name in NOC_KERNELS:
             tm, path = ninfo[name]["timings"][name], radix[name]
         elif name == "mem_net_route":
@@ -3583,7 +4226,7 @@ def main() -> int:
     return 0
 
 
-AB_WORKLOADS = ("headline", "companion", "north_star")
+AB_WORKLOADS = ("headline", "companion", "north_star", "mem_kernels")
 
 
 def ab_in(workload: str, tree: str) -> int:
@@ -3595,6 +4238,24 @@ def ab_in(workload: str, tree: str) -> int:
     import torch
 
     dev = torch.device("cuda", 0)
+    if workload == "mem_kernels":
+        # the three memory kernels' device times at the companion's first
+        # miss-heavy state (its iterations up to there checked)
+        sim = companion(dev)
+        found = {}
+
+        def watch(i, st, ln):
+            if "at" not in found and miss_heavy(sim, st):
+                found["at"] = i
+                found["state"] = (st.clone(), ln.clone())
+
+        run_checked(sim, COMPANION_CHECKED, new_stats(), watch)
+        sim.state, sim._lanes = found["state"]
+        t = time_mem_kernels(sim, *found["state"])
+        emit({"kernels_us": {k: t[k]["ms"] * 1e3 for k in MEM_KERNELS[:3]},
+              "walls": [], "iterations": found["at"],
+              "total_instructions": 0})
+        return 0
     if workload in ("headline", "companion"):
         if workload == "headline":
             from graphite_tpu_torch.trace.benchmarks import fft_trace
@@ -3630,13 +4291,14 @@ def ab_in(workload: str, tree: str) -> int:
 
 
 def ab(workload: str, trees) -> int:
-    """`python3 chip_smoke.py --ab headline|companion|north_star TREE...`:
-    the workload timed with the `graphite_tpu_torch` package of each TREE
-    (a directory that holds one, e.g. a `git archive` unpacked into the
-    git-ignored `_archive/`), each in a process of its own, the trees in
-    order and then in reverse (A B B A).  A JSON line a process, one a
-    tree (its walls, their median and spread), then the card's name and
-    power limit."""
+    """`python3 chip_smoke.py --ab headline|companion|north_star|mem_kernels
+    TREE...`: the workload timed with the `graphite_tpu_torch` package of
+    each TREE (a directory that holds one, e.g. a `git archive` unpacked
+    into the git-ignored `_archive/`), each in a process of its own, the
+    trees in order and then in reverse (A B B A).  A JSON line a process,
+    one a tree (its walls, their median and spread; for mem_kernels each
+    memory kernel's device µs at the companion's miss-heavy state), then
+    the card's name and power limit."""
     import torch
 
     if workload not in AB_WORKLOADS or not trees:
@@ -3647,6 +4309,7 @@ def ab(workload: str, trees) -> int:
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
     walls = {t: [] for t in trees}
+    kus = {t: {} for t in trees}
     first = {}
     for tree in trees + trees[::-1]:
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -3661,8 +4324,16 @@ def ab(workload: str, trees) -> int:
             raise AssertionError(f"{tree}: the {workload} changed its "
                                  "result")
         walls[tree] += res["walls"]
-        emit({"tree": tree, "workload": workload, **res,
-              "median": statistics.median(res["walls"])})
+        for k, us in res.get("kernels_us", {}).items():
+            kus[tree].setdefault(k, []).append(us)
+        emit({"tree": tree, "workload": workload, **res})
+    if workload == "mem_kernels":
+        for tree, ks in kus.items():
+            emit({"tree": tree, "workload": workload,
+                  **{k: {"us": v, "median": statistics.median(v)}
+                     for k, v in ks.items()}})
+        print(smi_line(), flush=True)
+        return 0
     for tree, w in walls.items():
         med = statistics.median(w)
         emit({"tree": tree, "workload": workload, "runs": len(w),

@@ -22,7 +22,17 @@ struct MemConsts {
     int64_t req_bits, rep_bits, n_mc;
     int64_t S1I, W1I, S1D, W1D, S2, W2, DS, DW, SW;
     int64_t dram_lat_ps, dir_access_ps, sync_dir_l2_ps, sync_dir_net_ps;
+    // the protocol (0 MSI, 1 MOSI), the directory scheme (SCHEME_*), its
+    // hardware sharer count k and the limitless trap in ps
+    int64_t is_mosi, scheme, max_hw_sharers, trap_ps;
 };
+
+// `[dram_directory] directory_type` (memory/params.py `SCHEMES`)
+#define SCHEME_FULL_MAP 0
+#define SCHEME_LIMITED_NO_BROADCAST 1
+#define SCHEME_ACKWISE 2
+#define SCHEME_LIMITED_BROADCAST 3
+#define SCHEME_LIMITLESS 4
 
 // columns of the per-tile cycle table (memory/common.py MemTiming)
 #define CYC_L1I_DAT 0
@@ -54,6 +64,7 @@ struct MemConsts {
 #define DIR_UNCACHED 0
 #define DIR_SHARED 1
 #define DIR_MODIFIED 2
+#define DIR_OWNED 3
 #define PHASE_IDLE 0
 #define PHASE_WAIT_REPLY 1
 #define MOD_L1I 1

@@ -1,18 +1,22 @@
 // mem_home_start: phase 3 of the memory engine, the homes' transaction
-// starts (MSI, full_map directory).
+// starts (MSI and MOSI, each directory scheme).
 //
 // Replaces (XLA unit): graphite_tpu/memory/engine.py:2219-2546
-// (`_home_starts`, the MSI full_map branches: resume a saved request or
-// pop the earliest one, directory lookup / allocation with NULLIFY of a
-// full set's fewest-sharer victim, the immediate finishes with their
-// DRAM or buffered reply, and the INV / FLUSH / WB fan-out into the FWD
-// matrix) with :195-224 (`_req_earliest`, `_req_consume`).  Plain
-// version: graphite_tpu_torch/ops/mem_home_start.py.
+// (`_home_starts`: resume a saved request or pop the earliest one,
+// directory lookup / allocation with NULLIFY of a full set's
+// fewest-sharer victim, the immediate finishes with their DRAM or
+// buffered reply, and the INV / FLUSH / WB fan-out into the FWD matrix;
+// MOSI's cache-to-cache SH fetch and INV_FLUSH_COMBINED supplier; the
+// limited_no_broadcast displacement, the ackwise / limited_broadcast
+// sweep to every tile and the limitless trap) with :195-224
+// (`_req_earliest`, `_req_consume`).  Plain version:
+// graphite_tpu_torch/ops/mem_home_start.py.
 //
 // Bound: bytes.  A starting home reads its directory set (DW packed
 // words, 128 B at DW = 16), one entry's sharer words (SW * 4 B, 128 B at
-// T = 1024), writes one entry and at most T FWD cells (13 B each); every
-// CTA also reads the T request cells (13 B each) for the election.
+// T = 1024), writes one entry and at most T FWD cells (13 B each; an
+// overflowed broadcast sweep writes all T); every CTA also reads the T
+// request cells (13 B each) for the election.
 //
 // Design: one thread a home, HOMES homes a CTA.  The election is the JAX
 // segment-min: each CTA's threads walk the T requester cells together and
@@ -24,8 +28,19 @@
 // requester's request cell and the replied requester's reply cell (a
 // requester has one outstanding miss, so one home pops and replies to
 // it).  The victim entry's sharer words are read for the reply and the
-// fan-out before the entry is rewritten in place; a fan-out walks the
-// set bits of the pending words with __ffs.
+// fan-out before the entry is rewritten in place (at most one write an
+// entry a call: the install / immediate finish and the two
+// limited_no_broadcast writes fall on disjoint homes); a fan-out walks
+// the set bits of the pending words (or of every tile, for a broadcast
+// sweep) with __ffs, one copy's message possibly differing (`ovr_col`:
+// the data supplier).  The protocol and the scheme come in the argument
+// block (`MemConsts`), so every thread takes the same branch; a template
+// flag (EXT: MOSI, or a scheme other than full_map) leaves MSI full_map
+// an instantiation without those branches: inline, they cost its zero-
+// load form 8 registers, a 16-byte spill and 0.5 µs a call at the
+// companion's miss-heavy state (PERF.md §6).  Each flag value has its
+// own entry point (`gt_mem_home_start`, `gt_mem_home_start_ext`), so
+// their launches count apart.
 #include "mem_common.cuh"
 
 #define HOMES 128          // homes a CTA, under the zero-load nets
@@ -71,6 +86,7 @@ struct HomeArgs {
     int64_t* dir_accesses;
     int64_t* dram_reads;
     int64_t* dram_total_lat;
+    int64_t* dir_broadcasts;
     int64_t unused;
     MemConsts c;
     NetConsts n;
@@ -95,6 +111,27 @@ __device__ __forceinline__ int64_t e_pack(int64_t tag, int st, int64_t owner,
            ((nsh & ID_MASK) << NSH_SHIFT);
 }
 
+// the lowest set bit of an entry's sharer words, -1 when none (the
+// deterministic getOneSharer); `skip`: a tile left out
+__device__ __forceinline__ int lowest_sharer(const int32_t* sh, int SW,
+                                             int skip) {
+    for (int w = 0; w < SW; ++w) {
+        uint32_t b = (uint32_t)sh[w];
+        if (skip >= 0 && skip / 32 == w) b &= ~(1u << (skip % 32));
+        if (b) return w * 32 + __ffs(b) - 1;
+    }
+    return -1;
+}
+
+// word w of a fan-out's targets: the pending words, or every tile (an
+// overflowed broadcast sweep)
+__device__ __forceinline__ uint32_t target_word(const int32_t* pend, int w,
+                                                bool bcast, int T) {
+    if (!bcast) return (uint32_t)pend[w];
+    const int n = T - w * 32;               // >= 1 for w < SW
+    return n >= 32 ? 0xFFFFFFFFu : (1u << n) - 1;
+}
+
 // A contention net's fan-out: the INV / FLUSH / WB copies into the home's
 // FWD column, one a set bit of its pending words (by tile id), each
 // copy's arrival from its rank among the targets (`mem_net_fanout`,
@@ -105,10 +142,11 @@ __device__ __forceinline__ int64_t e_pack(int64_t tag, int st, int64_t owner,
 // send hub (homes of one cluster collide there: the scatter form), its
 // delay on the ONet copies only, rank * flits and the ATAC zero-load
 // path.  Every thread of the block calls it (the queue commit).
-template <int NET>
+template <int NET, bool EXT>
 __device__ __forceinline__ void fan_out(const HomeArgs& a, long long* rows,
                                         bool valid, int h, bool fan,
-                                        int fwd_msg, int32_t eff_line,
+                                        bool bcast, int fwd_msg, int ovr_col,
+                                        int ovr_msg, int32_t eff_line,
                                         int64_t eff_time, bool en) {
     const MemConsts& c = a.c;
     const NetConsts& n = a.n;
@@ -122,7 +160,8 @@ __device__ __forceinline__ void fan_out(const HomeArgs& a, long long* rows,
         int k = 0;
         if (fan)
             for (int w = 0; w < SW; ++w)
-                for (uint32_t b = (uint32_t)pend[w]; b; b &= b - 1)
+                for (uint32_t b = target_word(pend, w, bcast, T); b;
+                     b &= b - 1)
                     k += w * 32 + __ffs(b) - 1 < T;
         if (n.contention) {
             const bool go = fan && en;
@@ -137,7 +176,8 @@ __device__ __forceinline__ void fan_out(const HomeArgs& a, long long* rows,
         int k_onet = 0;
         if (fan)
             for (int w = 0; w < SW; ++w)
-                for (uint32_t b = (uint32_t)pend[w]; b; b &= b - 1) {
+                for (uint32_t b = target_word(pend, w, bcast, T); b;
+                     b &= b - 1) {
                     const int s = w * 32 + __ffs(b) - 1;
                     k_onet += s < T && g.onet(h, s);
                 }
@@ -155,7 +195,8 @@ __device__ __forceinline__ void fan_out(const HomeArgs& a, long long* rows,
     if (!fan) return;
     int rank = 0;
     for (int w = 0; w < SW; ++w) {
-        for (uint32_t bits = (uint32_t)pend[w]; bits; bits &= bits - 1) {
+        for (uint32_t bits = target_word(pend, w, bcast, T); bits;
+             bits &= bits - 1) {
             const int s = w * 32 + __ffs(bits) - 1;
             if (s >= T) break;
             int64_t arrival = 0;
@@ -175,7 +216,8 @@ __device__ __forceinline__ void fan_out(const HomeArgs& a, long long* rows,
                           cyc_to_ps(en ? extra : 0, n.freq);
             }
             const size_t cell = (size_t)s * T + h;
-            a.fwd_type[cell] = (uint8_t)fwd_msg;
+            a.fwd_type[cell] =
+                (uint8_t)(EXT && s == ovr_col ? ovr_msg : fwd_msg);
             a.fwd_line[cell] = eff_line;
             a.fwd_time[cell] = arrival;
             ++rank;
@@ -183,7 +225,7 @@ __device__ __forceinline__ void fan_out(const HomeArgs& a, long long* rows,
     }
 }
 
-template <int NET>
+template <int NET, bool EXT>
 __global__ void __launch_bounds__(NET == NET_ZL ? HOMES : MAX_HOMES)
 mem_home_start_kernel(const HomeArgs a) {
     constexpr int NB = NET == NET_ZL ? HOMES : MAX_HOMES;
@@ -206,10 +248,10 @@ mem_home_start_kernel(const HomeArgs a) {
     const bool en = *a.enabled;
 
     // this home's messages: the immediate reply, the fan-out
-    bool imm = false, imm_ex = false, fan = false;
+    bool imm = false, imm_ex = false, fan = false, bcast = false;
     int32_t rreq = 0, eff_line = 0;
     int64_t ready = 0, eff_time = 0;
-    int fwd_msg = 0;
+    int fwd_msg = 0, ovr_col = -1, ovr_msg = MSG_FLUSH_REQ;
     const unsigned long long key = best[threadIdx.x];
     const bool found = key < FAR;
     const int r_col = found ? (int)(key % (unsigned long long)T) : 0;
@@ -280,10 +322,33 @@ mem_home_start_kernel(const HomeArgs a) {
         const bool uncached = eff_dstate == DIR_UNCACHED;
         const bool shared = eff_dstate == DIR_SHARED;
         const bool modified = eff_dstate == DIR_MODIFIED;
+        const bool owned = eff_dstate == DIR_OWNED;
+        const bool mosi = EXT && c.is_mosi != 0;
+        const bool lnb = EXT && c.scheme == SCHEME_LIMITED_NO_BROADCAST;
 
-        // (a) immediate finishes: UNCACHED requests, SH on SHARED
+        // the directory scheme: the hardware list holds k sharers
+        const int64_t k = c.max_hw_sharers;
+        const int32_t v_nsh = e_nsh(vw);
+        bool already = false;
+        if constexpr (EXT)
+            already = ((uint32_t)vsh[rreq / 32] >> (rreq % 32)) & 1;
+        // limited_no_broadcast: a (k+1)-th reader displaces a tracked
+        // sharer; a MODIFIED entry at capacity flushes its owner out
+        const bool at_cap = lnb && run_req && is_sh && v_nsh >= k && !already;
+        const bool sh_over = at_cap && (shared || owned);
+        const bool sh_over_m = at_cap && modified;
+        // limitless: an overflowed entry is served by the software trap
+        if (EXT && c.scheme == SCHEME_LIMITLESS && en && dfound &&
+            (v_nsh > k ||
+             (is_sh && !already && v_nsh >= k && (shared || owned))))
+            eff_time += c.trap_ps;
+
+        // (a) immediate finishes: UNCACHED requests; MSI also serves SH
+        // on SHARED from DRAM (MOSI fetches it cache-to-cache, below)
         imm_ex = run_req && is_ex && uncached;
-        const bool imm_sh = run_req && is_sh && (uncached || shared);
+        const bool imm_sh = run_req && is_sh &&
+                            (mosi ? uncached
+                                  : (uncached || shared) && !sh_over);
         imm = imm_ex || imm_sh;
         const bool keep = imm_sh && shared;   // the entry's sharers stay
         int32_t n_cur = 0;
@@ -293,31 +358,84 @@ mem_home_start_kernel(const HomeArgs a) {
             had = ((uint32_t)vsh[rreq / 32] >> (rreq % 32)) & 1;
         }
 
-        // (b) fan-out: EX/NULLIFY on SHARED invalidates every sharer; any
-        // request on MODIFIED goes to the owner (WB for SH, else FLUSH);
-        // the targets are the pending words, the copies go out below
-        const bool fan_inv = (run_req && is_ex && shared) ||
-                             (nullify && shared);
-        fan = fan_inv || modified;
+        // (b) fan-out: EX/NULLIFY on SHARED (MOSI: and OWNED) invalidates
+        // every sharer; any request on MODIFIED goes to the owner (WB for
+        // SH, else FLUSH); MOSI's SH on SHARED/OWNED fetches from one
+        // holder (WB); the targets are the pending words, the copies go
+        // out below
+        const bool fan_inv =
+            (mosi ? (run_req && is_ex) || nullify : is_ex || nullify) &&
+            (shared || (mosi && owned));
+        const bool sh_fetch = mosi && run_req && is_sh && (shared || owned) &&
+                              !sh_over;
+        fan = fan_inv || modified || sh_fetch || sh_over;
         if (fan) {
+            const int owner = min(max(v_owner, 0), T - 1);
+            const bool dirty_owner = owned && v_owner >= 0;
+            // the cache-to-cache source: the owner of an OWNED entry,
+            // else the lowest sharer
+            const int src = mosi || lnb
+                ? (dirty_owner ? v_owner : lowest_sharer(vsh, SW, -1)) : -1;
             fwd_msg = fan_inv ? MSG_INV_REQ
                               : (is_sh ? MSG_WB_REQ : MSG_FLUSH_REQ);
-            const int owner = min(max(v_owner, 0), T - 1);
+            // the sweep's data supplier gets INV_FLUSH_COMBINED: the
+            // owner of an OWNED entry, else the lowest sharer on an EX
+            if (mosi && fan_inv && (owned || (run_req && is_ex && shared)))
+                ovr_col = src;
+            // limited_no_broadcast's victim: the lowest sharer that is
+            // not the dirty owner, else the owner itself
+            int vic = -1;
+            bool victim_is_owner = false;
+            if (sh_over) {
+                const int v0 = lowest_sharer(vsh, SW, dirty_owner ? owner
+                                                                 : -1);
+                victim_is_owner = v0 < 0;
+                vic = v0 >= 0 ? v0 : owner;
+                fwd_msg = MSG_INV_REQ;
+                if (mosi && (shared || victim_is_owner)) {
+                    ovr_col = vic;       // leaves and supplies
+                } else if (mosi && owned) {
+                    ovr_col = owner;     // supplies alongside
+                    ovr_msg = MSG_WB_REQ;
+                }
+            }
+            if (sh_over_m) fwd_msg = MSG_FLUSH_REQ;
+            // ackwise / limited_broadcast: an overflowed entry's sweep
+            // goes to every tile; the acks awaited stay the true holders
+            bcast = EXT && fan_inv && v_nsh > k &&
+                    (c.scheme == SCHEME_ACKWISE ||
+                     c.scheme == SCHEME_LIMITED_BROADCAST);
+            if (bcast && en) a.dir_broadcasts[h] += 1;
             int32_t* pend = a.pending + (size_t)h * SW;
             for (int w = 0; w < SW; ++w) {
-                uint32_t bits = fan_inv ? (uint32_t)vsh[w]
-                                        : (owner / 32 == w
-                                           ? 1u << (owner % 32) : 0u);
+                uint32_t bits = 0;
+                if (sh_over) {
+                    // the victim, and an OWNED entry's owner, which
+                    // supplies the data
+                    if (vic / 32 == w) bits |= 1u << (vic % 32);
+                    if (owned && !victim_is_owner && v_owner >= 0 &&
+                        owner / 32 == w)
+                        bits |= 1u << (owner % 32);
+                } else if (fan_inv) {
+                    bits = (uint32_t)vsh[w];
+                } else if (sh_fetch) {
+                    if (src >= 0 && min(src, T - 1) / 32 == w)
+                        bits = 1u << (min(src, T - 1) % 32);
+                } else if (owner / 32 == w) {
+                    bits = 1u << (owner % 32);
+                }
                 pend[w] = (int32_t)bits;
                 if constexpr (NET == NET_ZL) {
                     // the zero-load copies go out here, one a target
+                    if (bcast) bits = target_word(pend, w, true, T);
                     while (bits) {
                         const int b = __ffs(bits) - 1;
                         bits &= bits - 1;
                         const int s = w * 32 + b;
                         if (s >= T) break;
                         const size_t cell = (size_t)s * T + h;
-                        a.fwd_type[cell] = (uint8_t)fwd_msg;
+                        a.fwd_type[cell] = (uint8_t)(
+                            EXT && s == ovr_col ? ovr_msg : fwd_msg);
                         a.fwd_line[cell] = eff_line;
                         a.fwd_time[cell] = eff_time + net_lat_ps(
                             c, h, s, c.req_bits, en);
@@ -330,6 +448,21 @@ mem_home_start_kernel(const HomeArgs a) {
             a.requester[h] = rreq;
             a.time_ps[h] = eff_time;
             a.data_cached[h] = false;
+
+            // limited_no_broadcast's in-place entry writes: the victim
+            // leaves now (its ack is this transaction's), or the MODIFIED
+            // entry at capacity empties (the finish installs the
+            // requester alone)
+            if (sh_over) {
+                words[alloc] = e_pack(
+                    v_line, victim_is_owner ? DIR_SHARED : eff_dstate,
+                    victim_is_owner ? -1 : v_owner, v_nsh - 1);
+                vsh[vic / 32] = (int32_t)((uint32_t)vsh[vic / 32] &
+                                          ~(1u << (vic % 32)));
+            } else if (sh_over_m) {
+                words[alloc] = e_pack(v_line, DIR_UNCACHED, -1, 0);
+                for (int w = 0; w < SW; ++w) vsh[w] = 0;
+            }
         }
 
         // one entry write: the new entry's install (UNCACHED, empty) and
@@ -379,17 +512,17 @@ mem_home_start_kernel(const HomeArgs a) {
                                          (imm_ex ? MSG_EX_REP : MSG_SH_REP));
             a.rep_time[rreq] += arrival;
         }
-        fan_out<NET>(a, net_rows, valid, h, fan, fwd_msg, eff_line,
-                     eff_time, en);
+        fan_out<NET, EXT>(a, net_rows, valid, h, fan, bcast, fwd_msg,
+                          ovr_col, ovr_msg, eff_line, eff_time, en);
     }
 }
 
-template <int NET>
+template <int NET, bool EXT>
 static int launch(const HomeArgs* args, cudaStream_t stream) {
     const int T = (int)args->c.T;
     if (NET == NET_ZL) {
-        mem_home_start_kernel<NET><<<(T + HOMES - 1) / HOMES, HOMES, 0,
-                                     stream>>>(*args);
+        mem_home_start_kernel<NET, EXT><<<(T + HOMES - 1) / HOMES, HOMES, 0,
+                                          stream>>>(*args);
         return (int)cudaGetLastError();
     }
     // a contention net: one CTA, so that every route set sees the
@@ -398,22 +531,41 @@ static int launch(const HomeArgs* args, cudaStream_t stream) {
     static size_t smem_set = 0;    // the opt-in beyond the static default
     if (smem > smem_set) {
         const cudaError_t e = cudaFuncSetAttribute(
-            mem_home_start_kernel<NET>,
+            mem_home_start_kernel<NET, EXT>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
         smem_set = smem;
     }
-    mem_home_start_kernel<NET><<<1, (T + 31) / 32 * 32, smem, stream>>>(
-        *args);
+    mem_home_start_kernel<NET, EXT><<<1, (T + 31) / 32 * 32, smem,
+                                      stream>>>(*args);
     return (int)cudaGetLastError();
 }
 
-extern "C" int gt_mem_home_start(const HomeArgs* args, cudaStream_t stream) {
-    static_assert(sizeof(HomeArgs) == (32 + 1 + 31 + 22) * 8,
-                  "HomeArgs: 32 pointers, one int, MemConsts and NetConsts");
+template <bool EXT>
+static int launch_net(const HomeArgs* args, cudaStream_t stream) {
     switch ((int)args->c.net_kind) {
-        case 2: return launch<NET_HBH>(args, stream);
-        case 3: return launch<NET_ATAC>(args, stream);
-        default: return launch<NET_ZL>(args, stream);
+        case 2: return launch<NET_HBH, EXT>(args, stream);
+        case 3: return launch<NET_ATAC, EXT>(args, stream);
+        default: return launch<NET_ZL, EXT>(args, stream);
     }
+}
+
+static_assert(sizeof(HomeArgs) == (33 + 1 + 35 + 22) * 8,
+              "HomeArgs: 33 pointers, one int, MemConsts and NetConsts");
+
+// MSI full_map: the instantiation without the MOSI and scheme branches;
+// it refuses any other protocol or scheme
+extern "C" int gt_mem_home_start(const HomeArgs* args, cudaStream_t stream) {
+    if (args->c.is_mosi || args->c.scheme != SCHEME_FULL_MAP)
+        return (int)cudaErrorInvalidValue;
+    return launch_net<false>(args, stream);
+}
+
+// MOSI, or a scheme other than full_map (`mem_home_start[ext]`, counted
+// apart); it refuses MSI full_map
+extern "C" int gt_mem_home_start_ext(const HomeArgs* args,
+                                     cudaStream_t stream) {
+    if (!args->c.is_mosi && args->c.scheme == SCHEME_FULL_MAP)
+        return (int)cudaErrorInvalidValue;
+    return launch_net<true>(args, stream);
 }

@@ -340,7 +340,7 @@ static int launch(const ReqArgs* args, cudaStream_t stream) {
 }
 
 extern "C" int gt_mem_requester(const ReqArgs* args, cudaStream_t stream) {
-    static_assert(sizeof(ReqArgs) == (55 + 1 + 31 + 22) * 8,
+    static_assert(sizeof(ReqArgs) == (55 + 1 + 35 + 22) * 8,
                   "ReqArgs: 55 pointers, L, MemConsts and NetConsts");
     switch ((int)args->c.net_kind) {
         case 2: return launch<NET_HBH>(args, stream);

@@ -228,7 +228,7 @@ static int launch(const FillArgs* args, cudaStream_t stream) {
 
 extern "C" int gt_mem_requester_fill(const FillArgs* args,
                                      cudaStream_t stream) {
-    static_assert(sizeof(FillArgs) == (40 + 1 + 31 + 22) * 8,
+    static_assert(sizeof(FillArgs) == (40 + 1 + 35 + 22) * 8,
                   "FillArgs: 40 pointers, L, MemConsts and NetConsts");
     switch ((int)args->c.net_kind) {
         case 2: return launch<NET_HBH>(args, stream);

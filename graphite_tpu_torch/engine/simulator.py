@@ -3,7 +3,8 @@
 Port of `graphite_tpu/engine/simulator.py` for the path this package
 supports: the simple in-order and the iocoom cores (mixed per tile by
 `[tile] model_list`), without a memory subsystem or with the private-L1/L2
-MSI directory protocol (`full_map` directory), the magic,
+MSI or MOSI directory protocol (any of the five directory schemes), the
+magic,
 emesh_hop_counter, emesh_hop_by_hop or atac network as the USER and as
 the MEMORY net, and the `lax`, `lax_barrier` and `lax_p2p` clock-skew
 schemes (`lax_barrier` also host-driven, `barrier_host`), resident on one
@@ -518,16 +519,12 @@ class Simulator:
             return None
         protocol = cfg.get_string("caching_protocol/type",
                                   "pr_l1_pr_l2_dram_directory_msi")
-        if protocol in ("pr_l1_pr_l2_dram_directory_mosi",
-                        "pr_l1_sh_l2_msi", "pr_l1_sh_l2_mesi"):
+        if protocol in ("pr_l1_sh_l2_msi", "pr_l1_sh_l2_mesi"):
             raise _not_ported(f"the caching protocol {protocol!r}", 8)
-        if protocol != "pr_l1_pr_l2_dram_directory_msi":
+        if protocol not in ("pr_l1_pr_l2_dram_directory_msi",
+                            "pr_l1_pr_l2_dram_directory_mosi"):
             raise NotImplementedError(
                 f"caching protocol {protocol!r} pending")
-        dir_type = cfg.get_string("dram_directory/directory_type",
-                                  "full_map")
-        if dir_type != "full_map":
-            raise _not_ported(f"the {dir_type!r} directory scheme", 8)
         return MemParams.from_config(config)
 
     @staticmethod

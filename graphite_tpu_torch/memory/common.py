@@ -95,6 +95,17 @@ def popcount(words) -> torch.Tensor:
     return popcount32(words).sum(dim=1).to(torch.int32)
 
 
+def lowest_sharer(words) -> torch.Tensor:
+    """The lowest set bit of each row, int64[T] (-1 when the row is
+    empty): the deterministic `DirectoryEntry::getOneSharer`
+    (`engine.py:129-141`)."""
+    nonzero = words != 0
+    w_idx = torch.argmax(nonzero.to(torch.int8), dim=1)
+    w = torch.gather(words, 1, w_idx[:, None])[:, 0].to(torch.int64) & U32
+    bit = popcount32((w & -w) - 1)
+    return torch.where(nonzero.any(dim=1), w_idx * 32 + bit, -1)
+
+
 def unpack_sharers(words, n: int) -> torch.Tensor:
     """[T, SW] -> bool[T, n] (bit s of row t)."""
     s = torch.arange(n, device=words.device)
@@ -307,6 +318,7 @@ class MemTiming:
     dir_access_ps: int
     sync_dir_l2_ps: int
     sync_dir_net_ps: int
+    trap_ps: int             # `[limitless] software_trap_penalty`
 
     @classmethod
     def build(cls, mp: MemParams, device) -> "MemTiming":
@@ -329,6 +341,7 @@ class MemTiming:
             dir_access_ps=dps(mp.dir_access_cycles),
             sync_dir_l2_ps=dps(mp.sync_cycles(MOD_DIR, MOD_L2)),
             sync_dir_net_ps=dps(mp.sync_cycles(MOD_DIR, MOD_NET_MEM)),
+            trap_ps=dps(mp.limitless_trap_cycles),
         )
 
     def cycle_table(self, n_tiles: int, device) -> torch.Tensor:

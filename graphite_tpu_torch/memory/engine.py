@@ -1,8 +1,12 @@
-"""The private-L1/L2 MSI directory protocol engine (full_map directory).
+"""The private-L1/L2 directory protocol engine: MSI and MOSI, with each
+of the five directory schemes.
 
 Port of `graphite_tpu/memory/engine.py` `memory_engine_step`
-(`:1312-1845`) for `pr_l1_pr_l2_dram_directory_msi` with a `full_map`
-directory over any MEMORY network: magic or emesh_hop_counter (zero-load),
+(`:1312-1845`) for `pr_l1_pr_l2_dram_directory_msi` and `_mosi` with a
+`full_map`, `limited_no_broadcast`, `ackwise`, `limited_broadcast` or
+`limitless` directory (the sharer list stays exact in every scheme: the
+schemes differ in the messages they send and what those cost) over any
+MEMORY network: magic or emesh_hop_counter (zero-load),
 emesh_hop_by_hop or atac (every coherence message routed through the
 net's own queues, `MemState.noc`; memory/net.py).  One call advances
 every tile's memory machinery by one subquantum iteration, in six
@@ -56,11 +60,11 @@ from graphite_tpu_torch.memory.context import (
     MemCtx, MemRec,
 )
 from graphite_tpu_torch.memory.state import (
-    DIR_MODIFIED, DIR_SHARED, DIR_STATE_SHIFT, DIR_TAG_BITS, DIR_UNCACHED,
-    DIR_ID_BITS, DIR_OWNER_SHIFT, MOD_L1D, MOD_L1I, MSG_EX_REP, MSG_EX_REQ,
-    MSG_FLUSH_REP, MSG_FLUSH_REQ, MSG_INV_REP, MSG_INV_REQ, MSG_NONE,
-    MSG_NULLIFY, MSG_SH_REP, MSG_SH_REQ, MSG_WB_REP, MSG_WB_REQ,
-    MT_INVALIDATED, PHASE_IDLE, PHASE_WAIT_REPLY, MemState,
+    DIR_ID_BITS, DIR_MODIFIED, DIR_OWNED, DIR_OWNER_SHIFT, DIR_SHARED,
+    DIR_STATE_SHIFT, DIR_TAG_BITS, DIR_UNCACHED, MOD_L1D, MOD_L1I,
+    MSG_EX_REP, MSG_EX_REQ, MSG_FLUSH_REP, MSG_FLUSH_REQ, MSG_INV_REP,
+    MSG_INV_REQ, MSG_NONE, MSG_NULLIFY, MSG_SH_REP, MSG_SH_REQ, MSG_WB_REP,
+    MSG_WB_REQ, MT_INVALIDATED, PHASE_IDLE, PHASE_WAIT_REPLY, MemState,
 )
 from graphite_tpu_torch.ops import (
     mem_home_start, mem_requester, mem_requester_fill,
@@ -149,15 +153,18 @@ def sharer_step(ctx: MemCtx, ms: MemState, cps, enabled, progress) -> None:
     l1d_r = ca.row_invalidate(l1d_r, fline, inv_l1 & (cloc == MOD_L1D))
     l1i_hit, l1i_way, _ = ca.row_lookup(l1i_r, fline)
     l1d_hit, l1d_way, _ = ca.row_lookup(l1d_r, fline)
-    # WB downgrade: MSI M -> SHARED
-    l1i_r = ca.row_set_state(l1i_r, l1i_way, ca.SHARED,
+    # WB downgrade: MSI M -> SHARED; MOSI M -> OWNED, O -> O, S -> S
+    # (the owner keeps the dirty line)
+    wb_state = (torch.where(l2_state == ca.MODIFIED, ca.OWNED, l2_state)
+                if mp.is_mosi else ca.SHARED)
+    l1i_r = ca.row_set_state(l1i_r, l1i_way, wb_state,
                              wb_l1 & (cloc == MOD_L1I) & l1i_hit)
-    l1d_r = ca.row_set_state(l1d_r, l1d_way, ca.SHARED,
+    l1d_r = ca.row_set_state(l1d_r, l1d_way, wb_state,
                              wb_l1 & (cloc == MOD_L1D) & l1d_hit)
     ca.scatter_row(ms.l1i.meta, l1i_r)
     ca.scatter_row(ms.l1d.meta, l1d_r)
     l2_r = ca.row_invalidate(l2_r, fline, inv_l1)
-    l2_r = ca.row_set_state(l2_r, l2_way, ca.SHARED, wb_l1)
+    l2_r = ca.row_set_state(l2_r, l2_way, wb_state, wb_l1)
     ca.scatter_row(ms.l2.meta, l2_r)
     if mp.l2.track_line_utilization:
         lu_cur = ms.l2_util[tiles, sets, way64]
@@ -217,14 +224,22 @@ def home_acks_and_finish(ctx: MemCtx, ms: MemState, enabled,
     rbit = set_bit(torch.zeros_like(txn.pending), r, finish)
     exf = finish & is_ex & dfound
     shf = finish & is_sh & dfound
-    cur_nsh = dir_nsh(torch.gather(words, 1, way[:, None])[:, 0])
+    cur_word = torch.gather(words, 1, way[:, None])[:, 0]
+    cur_nsh = dir_nsh(cur_word)
     cur_sh = sh[tiles, way]
     had = test_bit(cur_sh, r)
-    # EX: M, owner r, sharers {r}; SH: r joins, the entry turns SHARED
-    # without owner (the WB data went through to DRAM)
+    # EX: M, owner r, sharers {r}; SH: r joins, and the entry turns
+    # SHARED without owner (MSI: the WB data went through to DRAM), or
+    # under MOSI a dirty entry (M / O) turns OWNED, its owner kept
+    sh_dstate, sh_owner = DIR_SHARED, -1
+    if mp.is_mosi:
+        cur_dstate = dir_state(cur_word)
+        from_dirty = (cur_dstate == DIR_MODIFIED) | (cur_dstate == DIR_OWNED)
+        sh_dstate = torch.where(from_dirty, DIR_OWNED, DIR_SHARED)
+        sh_owner = torch.where(from_dirty, dir_owner(cur_word), -1)
     dir_write(ms, tiles, sets, way, exf | shf,
-              dstate=torch.where(exf, DIR_MODIFIED, DIR_SHARED),
-              owner=torch.where(exf, r, -1),
+              dstate=torch.where(exf, DIR_MODIFIED, sh_dstate),
+              owner=torch.where(exf, r, sh_owner),
               sharers=torch.where(exf[:, None], rbit,
                                   set_bit(cur_sh, r, shf)),
               nsharers=torch.where(exf, 1,
@@ -248,7 +263,10 @@ def home_acks_and_finish(ctx: MemCtx, ms: MemState, enabled,
     txn.cdata_valid.copy_(txn.cdata_valid & ~(finish & cdata_hit))
     cnt = ms.counters
     cnt.dram_reads.add_((need_dram & enabled).to(i64))
-    cnt.dram_writes.add_((wb_any & enabled).to(i64))
+    # MOSI keeps WB data dirty at the owner: DRAM is written only when
+    # a dirty line is evicted or flushed
+    if not mp.is_mosi:
+        cnt.dram_writes.add_((wb_any & enabled).to(i64))
     cnt.dram_total_lat_ps.add_(torch.where(need_dram & enabled, dram_lat,
                                            0))
     progress.add_(torch.sum(finish, dtype=torch.int32)

@@ -196,6 +196,12 @@ def _auto_directory_access_cycles(directory_size_bytes: int) -> int:
     return 20
 
 
+# `[dram_directory] directory_type`, in the kernels' SCHEME_* order
+# (csrc/mem_common.cuh)
+SCHEMES = ("full_map", "limited_no_broadcast", "ackwise",
+           "limited_broadcast", "limitless")
+
+
 @dataclasses.dataclass(frozen=True)
 class MemParams:
     n_tiles: int
@@ -348,6 +354,10 @@ class MemParams:
         dir_sets = max(1, total_entries // dir_ways)
 
         dir_type = cfg.get_string("dram_directory/directory_type", "full_map")
+        if dir_type not in SCHEMES:
+            raise ValueError(
+                f"[dram_directory] directory_type = {dir_type!r}: one of "
+                f"{', '.join(SCHEMES)}")
         # Directory entry size for the access-time staircase: reference uses
         # max_hw_sharers-dependent sizes (`directory_cache.cc:50`); full_map
         # entry ~ T bits + owner + state.

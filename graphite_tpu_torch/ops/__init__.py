@@ -14,6 +14,7 @@
 | -------------------- | ------------------------------------------------ |
 | `mem_requester`      | memory/engine.py `_requester_once` :1378-1688    |
 | `mem_home_start`     | memory/engine.py `_home_starts` :2219-2546       |
+|   `[ext]`            | the same under MOSI or a limited scheme          |
 | `mem_requester_fill` | memory/engine.py `_requester_fill` :2547-2712    |
 | `iocoom_commit`      | models/iocoom.py `iocoom_commit` :129-330        |
 | `mem_net_route`      | memory/engine.py `mem_net_send` :251-277 (phases 4-5) |
@@ -69,8 +70,11 @@ KERNELS = {
               _mem_requester, _mem_home_start, _mem_requester_fill,
               _iocoom_commit, _noc_route, _atac_route, _mem_net_route)
 }
-# the `lax_p2p` instantiation of lane_fetch_cost, counted apart
-KERNELS[_lane_fetch_cost.KERNEL_P2P.name] = _lane_fetch_cost.KERNEL_P2P
+# the `lax_p2p` instantiation of lane_fetch_cost and the MOSI / scheme
+# instantiation of mem_home_start, counted apart
+for _k in (_lane_fetch_cost.KERNEL_P2P, _mem_home_start.KERNEL_EXT):
+    KERNELS[_k.name] = _k
+del _k
 
 
 def launch_counts() -> dict:

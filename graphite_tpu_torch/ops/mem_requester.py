@@ -37,6 +37,7 @@ from graphite_tpu_torch.memory.context import (
     CYC_L2_TAG, CYC_SYNC_CORE_L1D, CYC_SYNC_CORE_L1I, CYC_SYNC_L1D_L2,
     CYC_SYNC_L1I_L2, MemCtx, MemRec,
 )
+from graphite_tpu_torch.memory.params import SCHEMES
 from graphite_tpu_torch.memory.state import (
     MOD_L1D, MOD_L1I, MSG_EX_REQ, MSG_FLUSH_REP, MSG_INV_REP, MSG_NONE,
     MSG_SH_REQ, MT_EVICTED, MT_FETCHED, MT_INVALIDATED, MT_WORDS, PHASE_IDLE,
@@ -79,7 +80,8 @@ def engine_values(ctx: MemCtx) -> tuple:
             mp.l1d.num_sets, mp.l1d.num_ways, mp.l2.num_sets,
             mp.l2.num_ways, mp.dir_sets, mp.dir_ways, mp.sharer_words,
             tm.dram_lat_ps, tm.dir_access_ps, tm.sync_dir_l2_ps,
-            tm.sync_dir_net_ps)
+            tm.sync_dir_net_ps, int(mp.is_mosi), SCHEMES.index(mp.dir_type),
+            mp.max_hw_sharers, tm.trap_ps)
 
 
 def cache_specs(ctx: MemCtx) -> list:

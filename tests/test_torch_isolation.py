@@ -171,13 +171,14 @@ def test_wrappers_refuse_other_devices():
     "power_trace", "stream", "telemetry", "profile", "hist", "dvfs_spec",
     "fft_memory"])
 def test_unsupported_configurations_raise(what):
-    """Configurations outside the ported slices.  Since the memory slice,
-    "memory" is a trace with memory operands under the MOSI protocol and
-    "iocoom" the iocoom core with memory under an ackwise directory; since
-    both contention nets serve as the MEMORY net, "fft_memory" is the
-    FFT's loads over a hop-by-hop MEMORY net under MOSI, and "hop_by_hop"
-    and "atac" the FFT's loads with that net as the USER and the MEMORY
-    net under MOSI.  Since the outputs slice ported lax_p2p and
+    """Configurations outside the ported slices.  Since MOSI and the
+    directory schemes run on the private-L2 engine, "memory" is a trace
+    with memory operands under the shared-L2 MSI protocol, "iocoom" the
+    iocoom core with memory under the shared-L2 MESI protocol and an
+    ackwise directory, "fft_memory" the FFT's loads over a hop-by-hop
+    MEMORY net under the shared-L2 MSI, and "hop_by_hop" and "atac" the
+    FFT's loads with that net as the USER and the MEMORY net under the
+    shared-L2 MESI.  Since the outputs slice ported lax_p2p and
     barrier_host, their two cases are the statistics manager's
     device-timeline backend ("statistics_device", the telemetry ring)
     and its power trace ("power_trace", runtime energy)."""
@@ -199,22 +200,22 @@ def test_unsupported_configurations_raise(what):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             StatisticsManager(sim)
         return
-    mosi = "[caching_protocol]\ntype = pr_l1_pr_l2_dram_directory_mosi\n"
+    shl2_msi = "[caching_protocol]\ntype = pr_l1_sh_l2_msi\n"
+    shl2_mesi = "[caching_protocol]\ntype = pr_l1_sh_l2_mesi\n"
     if what == "memory":
         tb.flags[0, 1] = FLAG_MEM0_VALID
-        sc = cfg(extra="[caching_protocol]\n"
-                 "type = pr_l1_pr_l2_dram_directory_mosi")
+        sc = cfg(extra=shl2_msi)
     elif what == "iocoom":
         tb.flags[0, 1] = FLAG_MEM0_VALID
         sc = cfg(extra='[tile]\nmodel_list = "<16, iocoom, T1, T1, T1>"\n'
-                 "[dram_directory]\ndirectory_type = ackwise")
+                 + shl2_mesi + "[dram_directory]\ndirectory_type = ackwise")
     elif what == "fft_memory":
         tb = fft_trace(16, points_per_tile=16, use_memory=True)
-        sc = cfg(extra=mosi + "[network]\nmemory = emesh_hop_by_hop")
+        sc = cfg(extra=shl2_msi + "[network]\nmemory = emesh_hop_by_hop")
     elif what in ("hop_by_hop", "atac"):
         net = "emesh_hop_by_hop" if what == "hop_by_hop" else "atac"
         tb = fft_trace(16, points_per_tile=16, use_memory=True)
-        sc = cfg(user=net, extra=mosi + f"[network]\nmemory = {net}")
+        sc = cfg(user=net, extra=shl2_mesi + f"[network]\nmemory = {net}")
     elif what == "stream":
         kw = {"stream": True}
     elif what == "dvfs_spec":

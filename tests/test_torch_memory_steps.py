@@ -53,7 +53,6 @@ from graphite_tpu_torch.ops.mem_requester_fill import (
 SPLIT_DOMAINS = """
 [dvfs]
 synchronization_delay = 2
-[dvfs/domains]
 domains = "<1.0, CORE, L1_ICACHE, L1_DCACHE, NETWORK_USER><0.5, L2_CACHE, DIRECTORY, NETWORK_MEMORY>"
 """
 TINY_DIR = "[dram_directory]\ntotal_entries = 32\nassociativity = 2\n"
