@@ -8,7 +8,7 @@ toolkit; builds the kernels from `graphite_tpu_torch/csrc/` at first use.
 Phases, one JSON line each:
 
  1. device: the card, its power limit, torch/CUDA versions;
- 2. build: the eleven kernel libraries (thirteen kernels:
+ 2. build: the fourteen kernel libraries (sixteen kernels:
     lane_fetch_cost has a lax_p2p entry point, mem_home_start one for
     MOSI and the limited schemes), one `nvcc` each, in parallel, and
     what `-Xptxas -v` says of each (registers, spills);
@@ -157,8 +157,31 @@ MOSI and the four limited directory schemes on the private-L2 engine:
     limited_no_broadcast and limitless, their invalidations and the
     entries left over k.
 
-Then the kernels line (the eleven, `lane_fetch_cost[p2p]` and
-`mem_home_start[ext]`), the
+The shared-L2 engine (pr_l1_sh_l2_msi / _mesi):
+27. edge states, each shl2 kernel against its plain version, each with
+    the count that shows its branch (a NULLIFY of a slice victim with
+    sharers and the saved request after it, a request to a line still
+    DATA_INVALID, MESI's EXCLUSIVE fill, silent promote and WB
+    downgrade, an ackwise broadcast row at 1,024 tiles (timed, beside
+    the same sweep without a row) and an upgrade's at 40, the
+    limited_no_broadcast displacement, the limitless trap, a fill
+    waiting on a busy eviction cell; 40 tiles: a padded sharer word);
+28. card against CPU: the 64-tile canneal under shared-L2 MSI and MESI
+    with full_map, ackwise, limited_no_broadcast and limitless (k = 4)
+    and the 16-tile stress under shared-L2 MSI + ackwise (k = 2) over
+    each contention MEMORY net, each's first SHL2_CHECKED iterations
+    checked kernel by kernel;
+29. the slice's main path checked at its own shapes: canneal at 1,024
+    tiles on shared-L2 MESI, the first quantum with the most fills among
+    its first SHL2_SCAN, the SHL2_WINDOW iterations of it that hold the
+    most L1 misses checked kernel by kernel, each of the three kernels
+    timed at the iteration where its own work peaks;
+30. that canneal once to completion from launch counts at 0 (func_errors
+    0, each shl2 kernel once an iteration, no private-L2 memory
+    kernel), then under shared-L2 MSI.
+
+Then the kernels line (the eleven, `lane_fetch_cost[p2p]`,
+`mem_home_start[ext]` and the three shared-L2 kernels), the
 card's name and power limit, and last `{"ok": true, "device": {...}}`.
 Any failure exits non-zero before the last line.  Each phase's line
 carries `t_s`, the script's seconds so far, and `phase_s`, the seconds
@@ -200,6 +223,9 @@ REPLACES = {
     "mem_net_route": "graphite_tpu/memory/engine.py:251",
     "lane_fetch_cost[p2p]": "graphite_tpu/engine/step.py:253",
     "mem_home_start[ext]": "graphite_tpu/memory/engine.py:2311",
+    "shl2_requester": "graphite_tpu/memory/engine_shl2.py:407",
+    "shl2_home_start": "graphite_tpu/memory/engine_shl2.py:933",
+    "shl2_requester_fill": "graphite_tpu/memory/engine_shl2.py:1141",
 }
 # the headline's kernels (the memory slice's are MEM_KERNELS)
 KERNEL_ORDER = tuple(REPLACES)[:4]
@@ -208,6 +234,8 @@ P2P_KERNEL = "lane_fetch_cost[p2p]"
 # mem_home_start's instantiation with the MOSI and scheme branches,
 # counted apart
 HOME_EXT = "mem_home_start[ext]"
+# the shared-L2 engine's kernels, in its phase order
+SHL2_KERNELS = ("shl2_requester", "shl2_home_start", "shl2_requester_fill")
 TIMING_AT = {"send_phase": 200, "receive_phase": 1060}
 RUNS = 5
 
@@ -1311,7 +1339,7 @@ MEM_KERNELS = ("mem_requester", "mem_home_start", "mem_requester_fill",
 COMPANION_POINTS = 512
 COMPANION_CHECKED = 129     # of the companion's 768 iterations (its
 #                             first miss-heavy state is iteration 128)
-STRESS_CHECKED = 300
+STRESS_CHECKED = 150        # of the 64-tile memstress run's iterations
 MEM_RUNS = 5                # odd: the median is one run's wall
 TINY_L2 = "[l2_cache/T1]\ncache_size = 4\nassociativity = 1\n"
 TINY_DIR = "[dram_directory]\ntotal_entries = 32\nassociativity = 2\n"
@@ -1402,6 +1430,28 @@ def mem_call(name, sim, st, ln, plain: bool) -> None:
     elif name == "mem_home_start":
         fn = ops.mem_home_start_plain if plain else ops.mem_home_start
         fn(ctx, st.mem, en, ln.progress)
+    elif name == "shl2_requester":
+        if plain:
+            ops.shl2_requester_plain(
+                ctx, st.mem, MemRec.fetch(ln, tr, core.idx), core.clock_ps,
+                core.freq_mhz.to(torch.int64), ln.active, en, ln.progress)
+        else:
+            ops.shl2_requester(ctx, st.mem, ln, tr, core, en, ln.progress)
+    elif name == "shl2_home_start":
+        if plain:
+            ops.shl2_home_start_plain(
+                ctx, st.mem, ctx.cycle_ps(core.freq_mhz, en), en,
+                ln.progress)
+        else:
+            ops.shl2_home_start(ctx, st.mem, core.freq_mhz, en, ln.progress)
+    elif name == "shl2_requester_fill":
+        if plain:
+            ops.shl2_requester_fill_plain(
+                ctx, st.mem, MemRec.fetch(ln, tr, core.idx), core.clock_ps,
+                core.freq_mhz.to(torch.int64), en, ln.progress, ln.mem_ok)
+        else:
+            ops.shl2_requester_fill(ctx, st.mem, ln, tr, core, en,
+                                    ln.progress, ln.mem_ok)
     elif name == "mem_requester":
         if plain:
             ops.mem_requester_plain(
@@ -1456,6 +1506,18 @@ def checked_memory_engine(sim, st, ln, stats) -> None:
     version of `mem_net_route`."""
     mctx, en = sim.models.mem, st.models_enabled
     graphs = mctx.phase_graphs
+    if sim.params.mem.is_shl2:
+        # the shared-L2 engine: phases 2-4 as the replay of its graph
+        (middle,) = graphs.get(mctx, st.mem, en, st.core.freq_mhz,
+                               ln.progress)
+        check_mem_kernel("shl2_requester", sim, st, ln, stats)
+        if st.mem.noc is None:
+            graphs.replay(middle)
+        else:
+            check_route_phases(sim, st, ln, stats, middle)
+        check_mem_kernel("shl2_home_start", sim, st, ln, stats)
+        check_mem_kernel("shl2_requester_fill", sim, st, ln, stats)
+        return
     evict, sharer_acks = graphs.get(mctx, st.mem, en, st.core.freq_mhz,
                                     ln.progress)
     check_mem_kernel("mem_requester", sim, st, ln, stats)
@@ -1469,10 +1531,11 @@ def checked_memory_engine(sim, st, ln, stats) -> None:
 
 
 def check_route_phases(sim, st, ln, stats, sharer_acks) -> None:
-    """Phases 4 and 5 under a contention MEMORY net: on a copy with their
-    routes through the plain version of `mem_net_route`, on the originals
-    as the replay of their CUDA graph (`sharer_acks`, two `mem_net_route`
-    launches); every leaf of both must be equal."""
+    """Phases 4 and 5 (the shared-L2 engine: phases 2-4) under a
+    contention MEMORY net: on a copy with their routes through the plain
+    version of `mem_net_route`, on the originals as the replay of their
+    CUDA graph (`sharer_acks`, two `mem_net_route` launches); every leaf
+    of both must be equal."""
     import importlib
 
     from graphite_tpu_torch.memory import engine as me
@@ -1483,9 +1546,19 @@ def check_route_phases(sim, st, ln, stats, sharer_acks) -> None:
     en2 = st2.models_enabled
     orig, mnr.mem_net_route = mnr.mem_net_route, mnr.mem_net_route_plain
     try:
-        me.sharer_step(mctx, st2.mem, mctx.cycle_ps(st2.core.freq_mhz, en2),
-                       en2, ln2.progress)
-        me.home_acks_and_finish(mctx, st2.mem, en2, ln2.progress)
+        if sim.params.mem.is_shl2:
+            # the shared-L2 engine's graph: its phases 2-4
+            from graphite_tpu_torch.memory.engine_shl2 import (
+                shl2_graph_phases,
+            )
+
+            shl2_graph_phases(mctx, en2, st2.core.freq_mhz)[0](
+                st2.mem, ln2.progress)
+        else:
+            me.sharer_step(mctx, st2.mem,
+                           mctx.cycle_ps(st2.core.freq_mhz, en2), en2,
+                           ln2.progress)
+            me.home_acks_and_finish(mctx, st2.mem, en2, ln2.progress)
     finally:
         mnr.mem_net_route = orig
     mctx.phase_graphs.replay(sharer_acks)
@@ -1608,7 +1681,10 @@ def kernel_tensors(name, sim, ctx, st, ln) -> list:
                               st.mem.req.slot_lat_ps, en)
     elif name == "mem_home_start":
         args = mod.bound_args(sim.models.mem, st.mem, en, ln.progress)
-    elif name == "mem_requester":
+    elif name == "shl2_home_start":
+        args = mod.bound_args(sim.models.mem, st.mem, core.freq_mhz, en,
+                              ln.progress)
+    elif name in ("mem_requester", "shl2_requester"):
         args = mod.bound_args(sim.models.mem, st.mem, ln, sim.device_trace,
                               core, en, ln.progress)
     else:
@@ -1725,6 +1801,34 @@ def mem_bound(name, sim, st, ln) -> tuple:
                   | (m2.fwd_time != ms.mail.fwd_time))
         nbytes = T * 13 + T * 2 + homes * (
             mp.dir_ways * 8 + 2 * mp.sharer_words * 4 + 8 + 100) + cells * 13
+    elif name == "shl2_requester":
+        # the slot's own L1 row read by each lane that looks it up, and
+        # written back only by a hit that touches it or promotes E -> M;
+        # a request cell only for a miss
+        w = {k: n(v) for k, v in shl2_requester_lanes(
+            sim.models.mem, ms, ln, sim.device_trace, st.core, en).items()}
+        row_i, row_d = 8 * mp.l1i.num_ways, 8 * mp.l1d.num_ways
+        nbytes = (T * 20 + w["start"] * (90 + 8) + w["miss"] * 13
+                  + (w["look_i"] + w["back_i"]) * row_i
+                  + (w["look_d"] + w["back_d"]) * row_d)
+    elif name == "shl2_home_start":
+        live = ms.mail.req_type != 0
+        homes = torch.unique(ms.mail.req_home[live]).numel()
+        homes += n(ms.txn.saved_valid & ~ms.txn.active)
+        # the FWD cells this call writes, from its plain version on a copy
+        st2, ln2 = st.clone(), ln.clone()
+        mem_call(name, sim, st2, ln2, plain=True)
+        m2 = st2.mem.mail
+        cells = n((m2.fwd_type != ms.mail.fwd_type)
+                  | (m2.fwd_line != ms.mail.fwd_line)
+                  | (m2.fwd_time != ms.mail.fwd_time))
+        del st2, ln2
+        nbytes = T * 13 + homes * (
+            2 * 8 * mp.l2.num_ways + 2 * mp.sharer_words * 4 + 130
+        ) + cells * 13
+    elif name == "shl2_requester_fill":
+        fills = n((ms.req.phase == 1) & (ms.mail.rep_type != 0))
+        nbytes = T * 20 + fills * (2 * 8 * mp.l1d.num_ways + 13 + 70)
     elif name == "mem_requester_fill":
         fills = n((ms.req.phase == 1) & (ms.mail.rep_type != 0))
         rows = 8 * (mp.l2.num_ways + mp.l1d.num_ways)
@@ -1951,7 +2055,7 @@ RADIX_RUNS = 3
 def new_stats() -> dict:
     return {k: {"checks": 0, "max_abs_err": 0}
             for k in KERNEL_ORDER + MEM_KERNELS + NOC_KERNELS
-            + ("mem_net_route", P2P_KERNEL, HOME_EXT)}
+            + ("mem_net_route", P2P_KERNEL, HOME_EXT) + SHL2_KERNELS}
 
 
 def radix_sim(n_tiles, network, device, *, keys_per_tile=RADIX_KEYS,
@@ -3928,6 +4032,612 @@ def phase_mosi_full_width(dev, batch, build_s) -> list:
     return rows
 
 
+# --- the shared-L2 engine (pr_l1_sh_l2_msi / _mesi) ------------------------
+
+SHL2_MSI = "pr_l1_sh_l2_msi"
+SHL2_MESI = "pr_l1_sh_l2_mesi"
+SHL2_K = 4                  # max_hw_sharers of the canneal runs
+SHL2_CHECKED = 20           # checked iterations of each 64-tile canneal
+SHL2_WINDOW = 40            # checked iterations of the 1,024-tile canneal
+SHL2_SCAN = 6               # quanta scanned for the one with the most fills
+SHL2_E2E_CASES = tuple(
+    f"canneal64/{p}/{s}" for p in ("msi", "mesi")
+    for s in ("full_map", "ackwise", "limited_no_broadcast", "limitless"))
+SHL2_NET_CASES = tuple(f"memstress16_ackwise2/{net}" for net in MEM_NETS)
+SHL2_EDGE_T = 40            # two sharer words, the second one padded
+
+
+def shl2_e2e_sim(name, where):
+    kind, *rest = name.split("/")
+    if kind == "canneal64":
+        from graphite_tpu_torch.trace.benchmarks import canneal_trace
+
+        proto, scheme = rest
+        return mem_sim(64, canneal_trace(64, footprint_lines=256), where,
+                       clock_scheme="lax_barrier",
+                       extra=scheme_extra(scheme, SHL2_K,
+                                          f"pr_l1_sh_l2_{proto}"))
+    return memstress(16, where, extra=scheme_extra("ackwise", 2, SHL2_MSI)
+                     + NET_EXTRA.format(net=rest[0]))
+
+
+def shl2_e2e_run(name, where) -> tuple:
+    """One case of `phase_shl2_end_to_end` on `where`, to completion:
+    (SimResults, iterations, wall s, the line census of its first 64
+    requested lines, the MEMORY net's queue rows or None)."""
+    sim = shl2_e2e_sim(name, where)
+    t0 = time.perf_counter()
+    r = sim.run()
+    lines = sorted({int(x) for x in sim.state.mem.req.line.cpu()})
+    noc = sim.state.mem.noc
+    return (r, sim.last_n_iterations, time.perf_counter() - t0,
+            sim.line_census(lines[:64]),
+            None if noc is None else mem_noc_rows(noc).cpu().numpy())
+
+
+def start_shl2_cpu(pool, cases) -> dict:
+    """The CPU sides of `phase_shl2_end_to_end`, queued on `pool`."""
+    return {name: pool.submit(shl2_e2e_run, name, "cpu") for name in cases}
+
+
+def phase_shl2_end_to_end(dev, card: str, stats, cpu_runs: dict) -> None:
+    """Card against CPU: the 64-tile canneal under shared-L2 MSI and MESI
+    with full_map and each limited scheme but limited_broadcast (k = 4),
+    and the 16-tile stress trace under shared-L2 MSI + ackwise (k = 2)
+    over each contention MEMORY net, each case's first SHL2_CHECKED
+    iterations checked kernel by kernel first; every SimResults field
+    (mem_counters
+    and func_errors with them), n_quanta, last_n_iterations, the line
+    census and `ShL2State.noc` equal."""
+    import numpy as np
+
+    for name in cpu_runs:
+        checked = run_checked(shl2_e2e_sim(name, dev), SHL2_CHECKED, stats)
+        rc, ic, wc, cc, qc = shl2_e2e_run(name, dev)
+        rp, ip, wp, cp, qp = cpu_runs[name].result()
+        bad = [f for f in RESULT_FIELDS
+               if not result_field_equal(getattr(rc, f), getattr(rp, f))]
+        if ic != ip:
+            bad.append("last_n_iterations")
+        if cc != cp:
+            bad.append("line_census")
+        if (qc is None) != (qp is None) or (
+                qc is not None and not np.array_equal(qc, qp)):
+            bad.append("mem.noc")
+        mc = rc.mem_counters
+        emit({"phase": "shl2_end_to_end", "case": name, "card": card,
+              "equal": not bad, "bad": bad, "checked_iterations": checked,
+              "iterations": ic, "n_quanta": rc.n_quanta, "card_s": wc,
+              "cpu_s": wp, "total_instructions": rc.total_instructions,
+              "completion_time_ps": rc.completion_time_ps,
+              "func_errors": rc.func_errors,
+              **{k: int(mc[k].sum()) for k in (
+                  "l2_misses", "dir_broadcasts", "invalidations",
+                  "dram_writes", "dir_accesses")}})
+        if bad:
+            raise AssertionError(f"card != cpu on {name}: {bad}")
+        if rc.func_errors:
+            raise AssertionError(f"{name}: functional errors")
+
+
+def shl2_sim(n_tiles, device, protocol=SHL2_MESI, scheme="full_map", k=2):
+    """A shared-L2 run of a tiny stress trace over the magic net (its
+    lanes idle: the edge states are set by hand)."""
+    from graphite_tpu_torch.trace import synthetic
+
+    return mem_sim(n_tiles, synthetic.memory_stress_trace(
+        n_tiles, n_accesses=2, seed=1), device, network="magic",
+        extra=scheme_extra(scheme, k, protocol)
+        + "[limitless]\nsoftware_trap_penalty = 201\n")
+
+
+def put_slice_line(sim, ms, home, line, way, l2_state, dstate=0, owner=-1,
+                   sharers=()):
+    """Slice line `line` at `way` on `home`, with its directory entry."""
+    import torch
+
+    from graphite_tpu_torch.memory import cache_array as ca
+
+    mp = sim.params.mem
+    S2, W2, SW = mp.l2.num_sets, mp.l2.num_ways, mp.sharer_words
+    s = line % S2
+    lru = int(ms.l2.meta[home, s, way]) & 0xFF
+    ms.l2.meta[home, s, way] = ca.pack(line, l2_state, lru)
+    ms.dir.word[home, s, way] = (dstate | ((owner + 1) << 3)
+                                 | (len(sharers) << 16))
+    row = [0] * SW
+    for t in sharers:
+        row[t // 32] |= 1 << (t % 32)
+    sh = ms.dir.sharers.view(mp.n_tiles, S2, W2, SW)
+    sh[home, s, way] = torch.tensor(
+        [w - (1 << 32) if w >= 1 << 31 else w for w in row],
+        dtype=torch.int32)
+
+
+def shl2_request(ms, r, rtype, line, home, t=3_000_000):
+    ms.mail.req_type[r] = rtype
+    ms.mail.req_home[r] = home
+    ms.mail.req_line[r] = line
+    ms.mail.req_time[r] = t
+
+
+def shl2_edge_cases(dev, stats) -> dict:
+    """Hand-set states, one a branch, each shared-L2 kernel against its
+    plain version (`torch.equal` on every leaf of the state and lanes),
+    each with the count that shows its branch: a NULLIFY of a slice
+    victim with L1 sharers, then the saved request resuming; a second
+    request to a line still DATA_INVALID; MESI's EXCLUSIVE fill, the
+    silent E->M promote and a second reader's WB downgrade; an ackwise
+    broadcast row at 1,024 tiles and an upgrade's sweep at 40;
+    limited_no_broadcast's displacement; the limitless trap; a fill
+    waiting on a busy eviction cell; and at T = 40 (two sharer words,
+    the second padded) sharers past tile 31 in every home-start case."""
+    import torch
+
+    from graphite_tpu_torch.memory import cache_array as ca
+
+    out, bad = {}, []
+    T, H, R = SHL2_EDGE_T, 5, 7
+    stride = lambda sim: sim.params.n_tiles * sim.params.mem.l2.num_sets  # noqa: E731
+
+    def home_case(label, sim, setup, show, timed=False):
+        st, ln = sim.state.clone(), sim._lanes.clone()
+        setup(sim, st.mem)
+        t = (kernel_at("shl2_home_start", sim, st, ln) if timed else {})
+        check_mem_kernel("shl2_home_start", sim, st, ln, stats)
+        fwd = st.mem.mail.fwd_type[:, H]
+        out[label] = {"copies": int((fwd != 0).sum()),
+                      "messages": sorted({int(m) for m in fwd if m}),
+                      "active": bool(st.mem.txn.active[H]),
+                      **{k: t[k] for k in ("us", "bound_us") if k in t},
+                      **show(sim, st.mem)}
+        return st, ln
+
+    def full_set(dstate, sharers, l2_state=ca.SHARED):
+        def setup(sim, ms):
+            for w in range(sim.params.mem.l2.num_ways):
+                last = w == sim.params.mem.l2.num_ways - 1
+                put_slice_line(sim, ms, H, H + (w + 1) * stride(sim), w,
+                               l2_state if last else ca.SHARED,
+                               dstate if last else 0, -1,
+                               sharers if last else ())
+            shl2_request(ms, R, 1, H + 20 * stride(sim), H)
+        return setup
+
+    # the NULLIFY of a victim with sharers (tile 35 in the padded word)
+    sim = shl2_sim(T, dev, SHL2_MSI)
+    st, ln = home_case("nullify_victim_with_sharers", sim,
+                       full_set(1, (3, R, 35)), lambda sim, ms: {
+                           "mtype": int(ms.txn.mtype[H]),
+                           "saved": bool(ms.txn.saved_valid[H])})
+    if out["nullify_victim_with_sharers"]["mtype"] != 11 or out[
+            "nullify_victim_with_sharers"]["copies"] != 3:
+        bad.append("nullify_victim_with_sharers")
+    # ... the NULLIFY over, the saved request resumes and installs
+    ms = st.mem
+    ms.txn.active[H] = False
+    ms.txn.pending[H] = 0
+    ms.mail.fwd_type.zero_()
+    W2 = sim.params.mem.l2.num_ways
+    put_slice_line(sim, ms, H, H + W2 * stride(sim), W2 - 1, ca.INVALID)
+    check_mem_kernel("shl2_home_start", sim, st, ln, stats)
+    out["saved_request_resumes"] = {
+        "saved": bool(ms.txn.saved_valid[H]),
+        "l2_misses": int(ms.counters.l2_misses[H])}
+    if out["saved_request_resumes"] != {"saved": False, "l2_misses": 1}:
+        bad.append("saved_request_resumes")
+    # a second request to a line still DATA_INVALID
+    sim = shl2_sim(T, dev, SHL2_MSI)
+    home_case("request_to_data_invalid", sim, lambda sim, ms: (
+        put_slice_line(sim, ms, H, H + stride(sim), 0, 5),
+        shl2_request(ms, R, 1, H + stride(sim), H)),
+        lambda sim, ms: {"l2_misses": int(ms.counters.l2_misses[H]),
+                         "dram_pending": int(ms.txn.dram_ready_ps[H])
+                         < 2**62})
+    if not out["request_to_data_invalid"]["dram_pending"]:
+        bad.append("request_to_data_invalid")
+    # MESI: the EXCLUSIVE fill, the silent promote, a second reader's WB
+    sim = shl2_sim(T, dev, SHL2_MESI)
+    st, ln = sim.state.clone(), sim._lanes.clone()
+    ms = st.mem
+    line = (0x100000 >> sim.params.mem.line_bits) + R
+    ms.req.phase[R] = 1
+    ms.req.line[R] = line
+    ms.req.component[R] = 2
+    ms.mail.rep_type[R] = 12
+    ms.mail.rep_time[R] = 4_000_000
+    check_mem_kernel("shl2_requester_fill", sim, st, ln, stats)
+    s1 = line % sim.params.mem.l1d.num_sets
+    states = {int(m) >> 16: (int(m) >> 8) & 0xFF for m in ms.l1d.meta[R, s1]}
+    out["mesi_exclusive_fill"] = {"l1_state": states.get(line)}
+    # ... R writes it: every lane's record is a store to its own line
+    for t in range(T):
+        ln.op[t] = 1
+        ln.flags[t] = 1 | 4
+        ln.active[t] = t == R
+    sim.device_trace.addr0[R, :] = line << sim.params.mem.line_bits
+    sim.device_trace.flags[R, :] = 1 | 4
+    check_mem_kernel("shl2_requester", sim, st, ln, stats)
+    states = {int(m) >> 16: (int(m) >> 8) & 0xFF for m in ms.l1d.meta[R, s1]}
+    out["mesi_silent_promote"] = {
+        "l1_state": states.get(line),
+        "requests": int((ms.mail.req_type != 0).sum()),
+        "l1d_write_hits": int(ms.counters.l1d_write_hits[R])}
+    if out["mesi_exclusive_fill"]["l1_state"] != ca.EXCLUSIVE or out[
+            "mesi_silent_promote"] != {"l1_state": ca.MODIFIED,
+                                       "requests": 0, "l1d_write_hits": 1}:
+        bad.append("mesi_exclusive_then_promote")
+    # ... a second reader: the EXCLUSIVE owner gets a WB
+    home_case("mesi_second_reader_downgrade", shl2_sim(T, dev, SHL2_MESI),
+              lambda sim, ms: (
+                  put_slice_line(sim, ms, H, H + stride(sim), 0, ca.SHARED,
+                                 4, 3, (3,)),
+                  shl2_request(ms, 33, 1, H + stride(sim), H)),
+              lambda sim, ms: {})
+    if out["mesi_second_reader_downgrade"]["messages"] != [5]:
+        bad.append("mesi_second_reader_downgrade")
+    # the broadcast rows: ackwise at 1,024 tiles (a NULLIFY-free EX on an
+    # overflowed entry; timed, and beside it the same sweep at k = 64,
+    # three copies and no row) and an upgrade's sweep at T = 40
+    for label, n, k, holders in (
+            (f"ackwise_row_{BIG_TILES}", BIG_TILES, 2, (3, 9, BIG_TILES - 5)),
+            (f"ackwise_k64_{BIG_TILES}", BIG_TILES, 64,
+             (3, 9, BIG_TILES - 5)),
+            (f"ackwise_upgrade_{T}", T, 2, (3, R, 35))):
+        sim = shl2_sim(n, dev, SHL2_MSI, "ackwise", k)
+        home_case(label, sim, lambda sim, ms: (
+            put_slice_line(sim, ms, H, H + stride(sim), 0, ca.SHARED, 1,
+                           -1, holders),
+            shl2_request(ms, R, 2, H + stride(sim), H)),
+            lambda sim, ms: {"dir_broadcasts": int(
+                ms.counters.dir_broadcasts.sum()),
+                "pending": int(sum(bin(int(w) & 0xFFFFFFFF).count("1")
+                                   for w in ms.txn.pending[H]))},
+            timed=n == BIG_TILES)
+        copies = n - 1 if k < len(holders) else len(holders)
+        if out[label]["copies"] != copies or out[label][
+                "dir_broadcasts"] != (k < len(holders)):
+            bad.append(label)
+        del sim
+        torch.cuda.empty_cache()
+    # limited_no_broadcast's displacement; the limitless trap
+    for label, scheme in (("lnb_displacement", "limited_no_broadcast"),
+                          ("limitless_trap", "limitless")):
+        for k in (2, 64):
+            sim = shl2_sim(T, dev, SHL2_MESI, scheme, k)
+            home_case(f"{label}/k{k}", sim, lambda sim, ms: (
+                put_slice_line(sim, ms, H, H + stride(sim), 0, ca.SHARED, 1,
+                               -1, (3, 9, 35)),
+                shl2_request(ms, R, 1, H + stride(sim), H)),
+                lambda sim, ms: {"time_ps": int(ms.txn.time_ps[H])})
+    if out["lnb_displacement/k2"]["messages"] != [3] or out[
+            "lnb_displacement/k64"]["copies"] != 0:
+        bad.append("lnb_displacement")
+    if out["limitless_trap/k2"]["time_ps"] <= out["limitless_trap/k64"][
+            "time_ps"]:
+        bad.append("limitless_trap")
+    # a fill waiting on its victim's busy eviction cell
+    sim = shl2_sim(T, dev, SHL2_MESI)
+    st, ln = sim.state.clone(), sim._lanes.clone()
+    ms, mp = st.mem, sim.params.mem
+    S1, W1 = mp.l1d.num_sets, mp.l1d.num_ways
+    for t in (R, 3):
+        lines = [t + 1 + i * S1 * T for i in range(W1 + 1)]
+        for w, x in enumerate(lines[:W1]):
+            lru = int(ms.l1d.meta[t, x % S1, w]) & 0xFF
+            ms.l1d.meta[t, x % S1, w] = ca.pack(x, ca.SHARED, lru)
+        ms.req.phase[t] = 1
+        ms.req.line[t] = lines[W1]
+        ms.req.component[t] = 2
+        ms.mail.rep_type[t] = 9
+        ms.mail.rep_time[t] = 6_000_000
+        if t == R:
+            ms.mail.evict_type[lines[W1 - 1] % T, t] = 6
+    check_mem_kernel("shl2_requester_fill", sim, st, ln, stats)
+    out["evict_blocked_busy_cell"] = {
+        "waiting": int(ms.req.phase[R]), "filled_other": int(ms.req.phase[3])
+        == 0}
+    if out["evict_blocked_busy_cell"] != {"waiting": 1,
+                                          "filled_other": True}:
+        bad.append("evict_blocked_busy_cell")
+    del sim, st, ln
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"shared-L2 edge states missed their branch: "
+                             f"{bad}")
+    return out
+
+
+def count_misses(sim) -> int:
+    c = sim.state.mem.counters
+    return int((c.l1i_misses + c.l1d_read_misses + c.l1d_write_misses)
+               .sum())
+
+
+def shl2_requester_lanes(ctx, ms, ln, trace, core, en) -> dict:
+    """`shl2_requester`'s lanes at this state, from its plain version's own
+    predicates: those that start a slot; those that look their slot's L1
+    row up (every start but an instruction-buffer hit), by cache; the
+    misses; and the hits that write their row back (an LRU touch, or
+    under MESI the E -> M promote of a write hit)."""
+    import torch
+
+    from graphite_tpu_torch.memory import cache_array as ca
+    from graphite_tpu_torch.memory.common import (
+        U32, next_present_slot, slots_present,
+    )
+    from graphite_tpu_torch.memory.context import MemRec
+    from graphite_tpu_torch.trace.schema import (
+        FLAG_MEM0_WRITE, FLAG_MEM1_WRITE,
+    )
+
+    mp = ctx.mp
+    rec = MemRec.fetch(ln, trace, core.idx)
+    slot = next_present_slot(slots_present(mp, rec.op, rec.flags, en),
+                             ms.req.slot)
+    start = ln.active & (ms.req.phase == 0) & (slot < 3)
+    icache = slot == 0
+    addr = torch.where(icache, rec.pc & U32,
+                       torch.where(slot == 1, rec.addr0, rec.addr1))
+    line = (addr >> mp.line_bits).to(torch.int32)
+    write = ~icache & torch.where(slot == 1,
+                                  (rec.flags & FLAG_MEM0_WRITE) != 0,
+                                  (rec.flags & FLAG_MEM1_WRITE) != 0)
+    look = start & ~(icache & (line == ms.req.instr_buf))
+    _, _, s_i = ca.row_lookup(
+        ca.gather_row(ms.l1i.meta, line, ctx.l1i_sets), line)
+    _, _, s_d = ca.row_lookup(
+        ca.gather_row(ms.l1d.meta, line, ctx.l1d_sets), line)
+    state = torch.where(icache, s_i, s_d)
+    hit = look & torch.where(write, ca.state_writable(state),
+                             ca.state_readable(state))
+    touch = ((icache & (mp.l1i.replacement != "round_robin"))
+             | (~icache & (mp.l1d.replacement != "round_robin")))
+    back = hit & (touch | (write & (state == ca.EXCLUSIVE)))
+    return {"start": start, "look_i": look & icache,
+            "look_d": look & ~icache, "miss": look & ~hit,
+            "back_i": back & icache, "back_d": back & ~icache}
+
+
+def shl2_work(name, ctx, ms, ln, trace, core, en):
+    """A shared-L2 kernel's work at the state it meets, as a 0-d tensor on
+    the state's device: the lanes that start a slot (`shl2_requester`),
+    the homes with no transaction that resume a saved request or have one
+    to pop (`shl2_home_start`), the replies a waiting requester consumes
+    (`shl2_requester_fill`)."""
+    import torch
+
+    if name == "shl2_requester":
+        return shl2_requester_lanes(ctx, ms, ln, trace, core,
+                                    en)["start"].sum()
+    if name == "shl2_home_start":
+        T = ctx.mp.n_tiles
+        live = ms.mail.req_type != 0
+        cell = torch.where(live, ms.mail.req_home.to(torch.int64), T)
+        has = torch.zeros(T + 1, dtype=torch.int32, device=live.device)
+        has.scatter_(0, cell, 1)
+        return (((has[:T] > 0) | ms.txn.saved_valid)
+                & ~ms.txn.active).sum()
+    return ((ms.req.phase == 1) & (ms.mail.rep_type != 0)).sum()
+
+
+class Shl2Probe:
+    """While entered, each shared-L2 kernel's work (`shl2_work`) at the
+    state it meets in the engine's step, recorded call by call on the card
+    with no host read."""
+
+    def __init__(self):
+        self.work = {k: [] for k in SHL2_KERNELS}
+
+    def __enter__(self):
+        from graphite_tpu_torch.memory import engine_shl2
+
+        self.saved = {k: getattr(engine_shl2, k) for k in SHL2_KERNELS}
+        work = self.work
+
+        def requester(ctx, ms, lanes, trace, core, en, progress, **kw):
+            work["shl2_requester"].append(shl2_work(
+                "shl2_requester", ctx, ms, lanes, trace, core, en))
+            self.saved["shl2_requester"](ctx, ms, lanes, trace, core, en,
+                                         progress, **kw)
+
+        def home_start(ctx, ms, freq, en, progress):
+            work["shl2_home_start"].append(shl2_work(
+                "shl2_home_start", ctx, ms, None, None, None, en))
+            self.saved["shl2_home_start"](ctx, ms, freq, en, progress)
+
+        def fill(ctx, ms, lanes, trace, core, en, progress, *a, **kw):
+            work["shl2_requester_fill"].append(shl2_work(
+                "shl2_requester_fill", ctx, ms, lanes, trace, core, en))
+            self.saved["shl2_requester_fill"](ctx, ms, lanes, trace, core,
+                                              en, progress, *a, **kw)
+
+        for k, f in zip(SHL2_KERNELS, (requester, home_start, fill)):
+            setattr(engine_shl2, k, f)
+        return self
+
+    def __exit__(self, *exc):
+        from graphite_tpu_torch.memory import engine_shl2
+
+        for k, f in self.saved.items():
+            setattr(engine_shl2, k, f)
+
+    def take(self) -> dict:
+        """The work recorded since the last take, call by call, as ints."""
+        import torch
+
+        out = {k: torch.stack(v).tolist() if v else []
+               for k, v in self.work.items()}
+        for v in self.work.values():
+            v.clear()
+        return out
+
+
+def kernel_at(name, sim, st, ln) -> dict:
+    """One shared-L2 kernel's times and bound at (st, ln) (`fresh_times`:
+    its device µs from CUDA graphs of 100 calls, each after a restore of
+    every tensor it binds, less the restores alone; its eager call's host
+    µs; its plain version's µs to the card's end)."""
+    t = fresh_times(name, sim, sim_ctx(sim), st, ln)
+    b_ms, b_by, nbytes, _ = mem_bound(name, sim, st, ln)
+    return {"us": t["ms"] * 1e3, "eager_us": t["call_ms"] * 1e3,
+            "plain_us": t["plain_ms"] * 1e3, "bound_us": b_ms * 1e3,
+            "bound_by": b_by, "bytes": nbytes}
+
+
+def shl2_kernel_at(name, sim, ctx, st, ln) -> dict:
+    """`name` timed in the iteration that starts at (st, ln), at the state
+    it meets there (the step's units before it run as the card runs
+    them), with its work at that state (`shl2_work`)."""
+    mctx, en = sim.models.mem, st.models_enabled
+    check_kernel("lane_fetch_cost", ctx, st, ln, new_stats())
+    (middle,) = mctx.phase_graphs.get(mctx, st.mem, en, st.core.freq_mhz,
+                                      ln.progress)
+    for k in SHL2_KERNELS:
+        if k == name:
+            break
+        mem_call(k, sim, st, ln, plain=False)
+        if k == "shl2_requester":
+            mctx.phase_graphs.replay(middle)
+    out = kernel_at(name, sim, st, ln)
+    out["work"] = int(shl2_work(name, mctx, st.mem, ln, sim.device_trace,
+                                st.core, en))
+    return out
+
+
+def phase_shl2_window(dev, batch, stats) -> dict:
+    """The slice's main path checked at its own shapes: canneal at 1,024
+    tiles on shared-L2 MESI (full_map) run by `run_chunk(1)` over its
+    first SHL2_SCAN quanta, the first quantum with the most fills (replies
+    consumed) taken; that quantum replayed from its start, iteration by
+    iteration at its boundary, to count each iteration's L1 misses and
+    each kernel's work at the state it meets (`Shl2Probe`); the
+    SHL2_WINDOW iterations with the most misses checked kernel by kernel
+    against the plain versions (max abs err 0); and each kernel timed at
+    the iteration where its own work peaks."""
+    import torch
+
+    from graphite_tpu_torch.engine.step import subquantum_iteration
+
+    sim = mem_sim(batch.op.shape[0], batch, dev, clock_scheme="lax_barrier",
+                  extra=scheme_extra("full_map", SHL2_K, SHL2_MESI))
+    t0 = time.perf_counter()
+    best = None
+    with Shl2Probe() as probe:
+        for q in range(SHL2_SCAN):
+            start = sim.state.clone()
+            done, n = sim.run_chunk(1)
+            fills = sum(probe.take()["shl2_requester_fill"])
+            if best is None or fills > best[1]:
+                best = (start, fills, q, sim.last_n_iterations)
+            else:
+                del start
+            if done or not n:
+                break
+    start, q_fills, q_at, iters = best
+    find_s = time.perf_counter() - t0
+
+    def replay(n):
+        sim.state = start.clone()
+        qend = quantum_end(sim)
+        for _ in range(n):
+            subquantum_iteration(sim.params, sim.device_trace, sim.state,
+                                 qend, sim._lanes, sim._cost_table,
+                                 sim.models)
+        return Ctx(sim.params, sim.device_trace, qend, sim._cost_table,
+                   sim.models)
+
+    ctx = replay(0)
+    per_it = []
+    with Shl2Probe() as probe:
+        for _ in range(iters):
+            m0 = count_misses(sim)
+            subquantum_iteration(sim.params, sim.device_trace, sim.state,
+                                 ctx.qend, sim._lanes, sim._cost_table,
+                                 sim.models)
+            per_it.append(count_misses(sim) - m0)
+        work = probe.take()
+    if any(len(v) != iters for v in work.values()):
+        raise AssertionError("canneal/shl2: a kernel not called once an "
+                             "iteration in the replayed quantum")
+    timed = {}
+    for name in SHL2_KERNELS:
+        w = work[name]
+        peak = max(range(iters), key=w.__getitem__)
+        ctx = replay(peak)
+        timed[name] = shl2_kernel_at(name, sim, ctx, sim.state, sim._lanes)
+        timed[name].update(timed_iteration=peak, peak_work=w[peak],
+                           mean_work=sum(w) / iters)
+    width = min(SHL2_WINDOW, iters)
+    sums = [sum(per_it[i:i + width]) for i in range(iters - width + 1)]
+    at = max(range(len(sums)), key=sums.__getitem__)
+    ctx = replay(at)
+    st, ln = sim.state, sim._lanes
+    t0 = time.perf_counter()
+    checked = 0
+    for _ in range(width):
+        checked_iteration(ctx, st, ln, stats, sim=sim)
+        checked += 1
+        if bool(st.done.all()):
+            break
+    torch.cuda.synchronize()
+    out = {"workload": "canneal/shl2_mesi/full_map",
+           "tiles": sim.params.n_tiles,
+           "sharer_words": sim.params.mem.sharer_words,
+           "dir_word_bytes": sim.state.mem.dir.word.numel() * 8,
+           "dir_sharers_bytes": sim.state.mem.dir.sharers.numel() * 4,
+           "quantum": q_at, "find_s": find_s, "quantum_iterations": iters,
+           "quantum_fills": q_fills, "quantum_misses": sum(per_it),
+           "window_from_iteration": at,
+           "window_misses": sum(per_it[at:at + width]),
+           "checked_iterations": checked,
+           "checked_s": time.perf_counter() - t0, "kernels": timed}
+    del sim, start, st, ln
+    torch.cuda.empty_cache()
+    if out["window_misses"] <= 0:
+        raise AssertionError("canneal/shl2: no miss in the checked window")
+    return out
+
+
+def phase_shl2_full_width(dev, batch, build_s) -> list:
+    """canneal at 1,024 tiles (4,096-line footprint) on
+    `config_text(1024, shared_mem=True, protocol="pr_l1_sh_l2_mesi",
+    clock_scheme="lax_barrier")`, full_map, the slice's main path, once to
+    completion with the launch counts from 0: func_errors 0, each shared-L2
+    kernel launched once an iteration, no private-L2 memory kernel
+    launched; then the same under pr_l1_sh_l2_msi."""
+    import torch
+
+    rows = []
+    for protocol in (SHL2_MESI, SHL2_MSI):
+        sim = mem_sim(batch.op.shape[0], batch, dev,
+                      clock_scheme="lax_barrier",
+                      extra=scheme_extra("full_map", SHL2_K, protocol))
+        row = workload_row(f"canneal/{protocol.removeprefix('pr_l1_')}",
+                           sim, dev, ("lane_fetch_cost", "barrier_sync",
+                                      "lane_commit") + SHL2_KERNELS)
+        it = row["iterations"]
+        if any(row["launches"][k] != it for k in SHL2_KERNELS):
+            raise AssertionError(f"{row['workload']}: a shared-L2 kernel "
+                                 "not launched once an iteration")
+        private = [k for k in MEM_KERNELS + (HOME_EXT,)
+                   if row["launches"].get(k)]
+        if private:
+            raise AssertionError(f"{row['workload']} launched {private}")
+        cnt = sim.state.mem.counters
+        row.update(protocol=protocol, trace_build_s=build_s,
+                   us_per_iteration=row["wall_s"] / it * 1e6,
+                   **{k: int(getattr(cnt, k).sum()) for k in (
+                       "dram_reads", "dram_writes", "dir_broadcasts",
+                       "invalidations", "evictions", "dir_accesses")})
+        if row["func_errors"]:
+            raise AssertionError(f"{row['workload']}: functional errors")
+        rows.append(row)
+        del sim
+        torch.cuda.empty_cache()
+    return rows
+
+
 def net_kernel_us(t: dict) -> dict:
     """A `time_net_kernels` entry in µs."""
     out = {"us": t["ms"] * 1e3, "call_us": t["call_ms"] * 1e3,
@@ -4099,6 +4809,7 @@ def phases(pool) -> int:
     # run meanwhile in one process
     cpu_runs = start_net_e2e_cpu(pool)
     mosi_cpu = start_mosi_cpu(pool)
+    shl2_cpu = start_shl2_cpu(pool, SHL2_E2E_CASES + SHL2_NET_CASES)
     nk = phase_memory_net_kernels(dev, stats)
     for net in MEM_NETS:
         emit({"phase": "memory_net_kernel", "memory_net": net,
@@ -4186,13 +4897,31 @@ def phases(pool) -> int:
     mosi_full = phase_mosi_full_width(dev, canneal, canneal_s)
     for row in mosi_full:
         emit({"phase": "mosi_full_width", "card": smi, **row})
+    torch.cuda.empty_cache()
+
+    # the shared-L2 engine: pr_l1_sh_l2_msi / _mesi
+    emit({"phase": "shl2_edge_cases", "card": smi,
+          "cases": shl2_edge_cases(dev, stats)})
+    phase_shl2_end_to_end(dev, smi, stats, shl2_cpu)
+    shl2_win = phase_shl2_window(dev, canneal, stats)
+    emit({"phase": "shl2_window", "card": smi, **shl2_win})
+    shl2_full = phase_shl2_full_width(dev, canneal, canneal_s)
+    for row in shl2_full:
+        emit({"phase": "shl2_full_width", "card": smi, **row})
 
     rows = []
     send = kinfo["timings"]["send_phase"]
     for name in KERNEL_ORDER + MEM_KERNELS + NOC_KERNELS + (
-            "mem_net_route", P2P_KERNEL, HOME_EXT):
+            "mem_net_route", P2P_KERNEL, HOME_EXT) + SHL2_KERNELS:
         mem = name in MEM_KERNELS
-        if name == P2P_KERNEL:
+        if name in SHL2_KERNELS:
+            # timed at the 1,024-tile MESI canneal's iteration where its
+            # own work peaks; launched by its run to completion
+            t = shl2_win["kernels"][name]
+            tm = {"ms": t["us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
+                  "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"]}
+            path = shl2_full[0]
+        elif name == P2P_KERNEL:
             tm, path = p2p_t["send_phase"]["lane_fetch_cost"], p2p_full
         elif name == HOME_EXT:
             # timed at the MOSI + ackwise companion's miss-heavy state;

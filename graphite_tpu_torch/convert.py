@@ -10,7 +10,8 @@ JAX:
  - `state_from_arrays(tree, device)` builds the port's `SimState` from a
    `jax.device_get` of a JAX `SimState` — any object or mapping with the
    same field names and numpy leaves — memory (`MemState`, the private-
-   L2 engine's, with the MEMORY net's queues `noc`), iocoom
+   L2 engine's, or `ShL2State`, the shared-L2 engine's, with the MEMORY
+   net's queues `noc`), iocoom
    (`IocoomState`) and the USER net's contention queues (`noc_user`:
    hop-by-hop `NocState` or ATAC `AtacState`) included;
  - `state_to_arrays(state)` is the inverse: a nested dict of numpy arrays
@@ -39,8 +40,9 @@ from graphite_tpu_torch.engine.state import (
     CoreState, DvfsState, SimState, SyncState, UserNetState,
 )
 from graphite_tpu_torch.memory.state import (
-    MSG_NONE, PHASE_IDLE, CacheArrays, DirectoryArrays, MemCounters,
-    MemMailboxes, MemState, RequesterState, TxnState,
+    FAR, MSG_NONE, PHASE_IDLE, CacheArrays, DirectoryArrays, MemCounters,
+    MemMailboxes, MemState, RequesterState, ShL2Dir, ShL2State, ShL2Txn,
+    TxnState,
 )
 from graphite_tpu_torch.models.iocoom import IocoomState
 from graphite_tpu_torch.models.network_atac import AtacState
@@ -81,6 +83,12 @@ _SUBTREES = {
     ("NocState", "queues"): QueueArrays,
     ("AtacState", "hub_queues"): QueueArrays,
     ("MemState", "noc"): "noc",
+    ("ShL2State", "l1i"): CacheArrays, ("ShL2State", "l1d"): CacheArrays,
+    ("ShL2State", "l2"): CacheArrays, ("ShL2State", "dir"): ShL2Dir,
+    ("ShL2State", "txn"): ShL2Txn, ("ShL2State", "mail"): MemMailboxes,
+    ("ShL2State", "req"): RequesterState,
+    ("ShL2State", "counters"): MemCounters,
+    ("ShL2State", "noc"): "noc",
 }
 
 
@@ -128,11 +136,15 @@ def _node(cls, tree, device, optional=()):
 
 
 def mem_state_from_arrays(tree, device):
-    """The port's MemState from a JAX MemState's numpy leaves (the private-
-    L2 engine's), the MEMORY net's contention queues (`noc`) included.
-    The JAX-only leaves (`live`, `phase_skips`) are dropped; staged
-    directory writes must have been flushed (the port writes the
-    directory in place)."""
+    """The port's MemState (from a JAX MemState's numpy leaves, the
+    private-L2 engine's) or ShL2State (from a JAX ShL2State's, the
+    shared-L2 engine's: it has `dir`), the MEMORY net's contention queues
+    (`noc`) included.  The JAX-only `live` is dropped, and the private
+    engine's `phase_skips` too (the port counts the shared-L2 engine's
+    only); staged directory writes must have been flushed (the port
+    writes the directory in place)."""
+    if _get(tree, "dir") is not None:
+        return _node(ShL2State, tree, device, optional=("noc",))
     d = _get(tree, "directory")
     skey = _get(d, "skey")
     if skey is not None and bool(np.any(np.asarray(skey) >= 0)):
@@ -237,8 +249,11 @@ def checkpoint_arrays(state: SimState) -> dict:
             "req_type", "evict_type", "fwd_type", "ack_type", "rep_type"))
             or bool(ms.txn.active.any()) or bool(ms.txn.saved_valid.any())
             or bool((ms.req.phase != PHASE_IDLE).any()))
+        if isinstance(ms, ShL2State):
+            # the shared-L2 engine's in-flight DRAM fetches
+            live = live or bool((ms.txn.dram_ready_ps < FAR).any())
         out[f"mem{CKPT_SEP}live"] = np.asarray(live)
-        out[f"mem{CKPT_SEP}phase_skips"] = np.zeros(6, np.int64)
+        out.setdefault(f"mem{CKPT_SEP}phase_skips", np.zeros(6, np.int64))
     return out
 
 

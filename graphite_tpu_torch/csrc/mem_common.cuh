@@ -278,6 +278,18 @@ __device__ __forceinline__ void row_insert(Row& r, int32_t line, int way,
     row_touch(r, way, true);
 }
 
+// the lowest set bit of an entry's sharer words, -1 when none (the
+// deterministic getOneSharer); `skip`: a tile left out
+__device__ __forceinline__ int lowest_sharer(const int32_t* sh, int SW,
+                                             int skip) {
+    for (int w = 0; w < SW; ++w) {
+        uint32_t b = (uint32_t)sh[w];
+        if (skip >= 0 && skip / 32 == w) b &= ~(1u << (skip % 32));
+        if (b) return w * 32 + __ffs(b) - 1;
+    }
+    return -1;
+}
+
 // --- miss-type bitmaps: int64 words holding uint32 bits ---------------------
 
 __device__ __forceinline__ int64_t* mt_word(int64_t* mt, int t, int row,

@@ -41,7 +41,7 @@
 // companion's miss-heavy state (PERF.md §6).  Each flag value has its
 // own entry point (`gt_mem_home_start`, `gt_mem_home_start_ext`), so
 // their launches count apart.
-#include "mem_common.cuh"
+#include "fanout.cuh"
 
 #define HOMES 128          // homes a CTA, under the zero-load nets
 #define MAX_HOMES 1024     // the one CTA of a contention net
@@ -111,18 +111,6 @@ __device__ __forceinline__ int64_t e_pack(int64_t tag, int st, int64_t owner,
            ((nsh & ID_MASK) << NSH_SHIFT);
 }
 
-// the lowest set bit of an entry's sharer words, -1 when none (the
-// deterministic getOneSharer); `skip`: a tile left out
-__device__ __forceinline__ int lowest_sharer(const int32_t* sh, int SW,
-                                             int skip) {
-    for (int w = 0; w < SW; ++w) {
-        uint32_t b = (uint32_t)sh[w];
-        if (skip >= 0 && skip / 32 == w) b &= ~(1u << (skip % 32));
-        if (b) return w * 32 + __ffs(b) - 1;
-    }
-    return -1;
-}
-
 // word w of a fan-out's targets: the pending words, or every tile (an
 // overflowed broadcast sweep)
 __device__ __forceinline__ uint32_t target_word(const int32_t* pend, int w,
@@ -132,97 +120,22 @@ __device__ __forceinline__ uint32_t target_word(const int32_t* pend, int w,
     return n >= 32 ? 0xFFFFFFFFu : (1u << n) - 1;
 }
 
-// A contention net's fan-out: the INV / FLUSH / WB copies into the home's
-// FWD column, one a set bit of its pending words (by tile id), each
-// copy's arrival from its rank among the targets (`mem_net_fanout`,
-// graphite_tpu/memory/engine.py:280-374; the zero-load nets' copies go
-// out in the kernel body).  emesh_hop_by_hop: one charge of k * flits
-// on the home's INJECT row (its own row, so no two homes collide), then
-// rank * flits and the zero-load path.  ATAC: one charge of k_onet * flits on the cluster's
-// send hub (homes of one cluster collide there: the scatter form), its
-// delay on the ONet copies only, rank * flits and the ATAC zero-load
-// path.  Every thread of the block calls it (the queue commit).
+// A contention net's fan-out (fanout.cuh `fan_out_routed`): the copies
+// go to the set bits of the pending words, or to every tile for a
+// broadcast sweep, the data supplier `ovr_col` with its own message.
 template <int NET, bool EXT>
 __device__ __forceinline__ void fan_out(const HomeArgs& a, long long* rows,
                                         bool valid, int h, bool fan,
                                         bool bcast, int fwd_msg, int ovr_col,
                                         int ovr_msg, int32_t eff_line,
                                         int64_t eff_time, bool en) {
-    const MemConsts& c = a.c;
-    const NetConsts& n = a.n;
-    const int T = (int)c.T, SW = (int)c.SW;
-    const int32_t* pend = a.pending + (size_t)(valid ? h : 0) * SW;
-    const int64_t flits_raw =
-        floor_div_i64(c.req_bits + n.flit_bits - 1, n.flit_bits);
-    const int64_t flits = flits_raw > 1 ? flits_raw : 1;
-    int64_t delay = 0;
-    if constexpr (NET == NET_HBH) {
-        int k = 0;
-        if (fan)
-            for (int w = 0; w < SW; ++w)
-                for (uint32_t b = target_word(pend, w, bcast, T); b;
-                     b &= b - 1)
-                    k += w * 32 + __ffs(b) - 1 < T;
-        if (n.contention) {
-            const bool go = fan && en;
-            delay = unique_charge(n.q + ((size_t)h * 6 + PORT_INJECT) * N_COLS,
-                                  n.history && n.analytical, n.span,
-                                  ps_to_cyc(eff_time, n.freq), k * flits, go);
-            if (__syncthreads_or(valid && !go) && threadIdx.x == 0)
-                scratch_terms(n.q + (size_t)T * 6 * N_COLS);
-        }
-    } else if constexpr (NET == NET_ATAC) {
-        const AtacGeo g = atac_geo(n);
-        int k_onet = 0;
-        if (fan)
-            for (int w = 0; w < SW; ++w)
-                for (uint32_t b = target_word(pend, w, bcast, T); b;
-                     b &= b - 1) {
-                    const int s = w * 32 + __ffs(b) - 1;
-                    k_onet += s < T && g.onet(h, s);
-                }
-        if (n.contention) {
-            atac_stage(n, rows);
-            const bool go = fan && k_onet > 0 && en;
-            const Lane ln{valid, go, go ? g.cluster(h) : 2 * (int)n.C,
-                          ps_to_cyc(eff_time, n.freq),
-                          k_onet * flits > 1 ? k_onet * flits : 1};
-            delay = scatter_delay(rows, 2 * (int)n.C,
-                                  n.history && n.analytical, n.span, ln);
-            atac_commit(n, rows);
-        }
-    }
-    if (!fan) return;
-    int rank = 0;
-    for (int w = 0; w < SW; ++w) {
-        for (uint32_t bits = target_word(pend, w, bcast, T); bits;
-             bits &= bits - 1) {
-            const int s = w * 32 + __ffs(bits) - 1;
-            if (s >= T) break;
-            int64_t arrival = 0;
-            if constexpr (NET == NET_HBH) {
-                const int w_ = (int)n.w;
-                const int64_t hops = abs(h % w_ - s % w_) + abs(h / w_ - s / w_);
-                const int64_t step = n.router_delay + n.link_delay;
-                const int64_t zl = n.router_delay + (hops + 1) * step +
-                                   (h == s ? 0 : flits);
-                arrival = eff_time + cyc_to_ps(
-                    en ? zl + delay + rank * flits : 0, n.freq);
-            } else if constexpr (NET == NET_ATAC) {
-                const AtacGeo g = atac_geo(n);
-                const int64_t extra =
-                    rank * flits + (g.onet(h, s) ? delay : 0);
-                arrival = eff_time + atac_zeroload(n, g, h, s, flits_raw, en) +
-                          cyc_to_ps(en ? extra : 0, n.freq);
-            }
-            const size_t cell = (size_t)s * T + h;
-            a.fwd_type[cell] =
-                (uint8_t)(EXT && s == ovr_col ? ovr_msg : fwd_msg);
-            a.fwd_line[cell] = eff_line;
-            a.fwd_time[cell] = arrival;
-            ++rank;
-        }
-    }
+    const int T = (int)a.c.T;
+    const int32_t* pend = a.pending + (size_t)(valid ? h : 0) * a.c.SW;
+    fan_out_routed<NET>(
+        a.c, a.n, rows, valid, h, fan,
+        [&](int w) { return target_word(pend, w, bcast, T); },
+        [&](int s) { return EXT && s == ovr_col ? ovr_msg : fwd_msg; },
+        a.fwd_type, a.fwd_line, a.fwd_time, eff_line, eff_time, en);
 }
 
 template <int NET, bool EXT>

@@ -2,9 +2,10 @@
 
 Port of `graphite_tpu/engine/simulator.py` for the path this package
 supports: the simple in-order and the iocoom cores (mixed per tile by
-`[tile] model_list`), without a memory subsystem or with the private-L1/L2
-MSI or MOSI directory protocol (any of the five directory schemes), the
-magic,
+`[tile] model_list`), without a memory subsystem, with the private-L1/L2
+MSI or MOSI directory protocol or with the shared-L2 MSI or MESI protocol
+(`pr_l1_sh_l2_*`, memory/engine_shl2.py; any of the five directory
+schemes), the magic,
 emesh_hop_counter, emesh_hop_by_hop or atac network as the USER and as
 the MEMORY net, and the `lax`, `lax_barrier` and `lax_p2p` clock-skew
 schemes (`lax_barrier` also host-driven, `barrier_host`), resident on one
@@ -37,8 +38,11 @@ from graphite_tpu_torch.engine.step import (
 )
 from graphite_tpu_torch.memory.context import MemCtx
 from graphite_tpu_torch.memory.engine import line_census
+from graphite_tpu_torch.memory.engine_shl2 import shl2_line_census
 from graphite_tpu_torch.memory.params import MemParams
-from graphite_tpu_torch.memory.state import COUNTER_NAMES, init_mem_state
+from graphite_tpu_torch.memory.state import (
+    COUNTER_NAMES, SHL2_PHASE_NAMES, init_mem_state, init_shl2_state,
+)
 from graphite_tpu_torch.models.dvfs import DvfsParams, module_freq_mhz
 from graphite_tpu_torch.models.iocoom import IocoomParams, init_iocoom_state
 from graphite_tpu_torch.models.network_atac import AtacParams, init_atac_state
@@ -63,10 +67,12 @@ class MailboxOverflowError(RuntimeError):
 def check_card_limits(params: EngineParams, n_barriers: int) -> None:
     """Raise the `ValueError` a one-CTA kernel of this path would raise at
     its first launch on a card: `mem_requester`, `mem_requester_fill`
-    and (under a contention MEMORY net) `mem_net_route` past 1,024
-    tiles, `atac_route` past 1,024 lanes, `barrier_sync` past 1,024
-    barriers.  `Simulator` calls it for a CUDA device; CPU runs take the
-    plain versions, which have no such limit."""
+    (the shared-L2 engine: `shl2_requester`, `shl2_home_start`,
+    `shl2_requester_fill`) and (under a contention MEMORY net)
+    `mem_net_route` past 1,024 tiles, `atac_route` past 1,024 lanes,
+    `barrier_sync` past 1,024 barriers.  `Simulator` calls it for a CUDA
+    device; CPU runs take the plain versions, which have no such
+    limit."""
     from graphite_tpu_torch.ops.atac_route import MAX_LANES
     from graphite_tpu_torch.ops.barrier_sync import MAX_BARRIERS
     from graphite_tpu_torch.ops.build import check_width
@@ -76,7 +82,9 @@ def check_card_limits(params: EngineParams, n_barriers: int) -> None:
     T = params.n_tiles
     mp = params.mem
     if mp is not None:
-        for name in ("mem_requester", "mem_requester_fill"):
+        names = (("shl2_requester", "shl2_home_start", "shl2_requester_fill")
+                 if mp.is_shl2 else ("mem_requester", "mem_requester_fill"))
+        for name in names:
             check_width(name, T, MAX_TILES, "tiles")
         if mp.net_hbh is not None or mp.net_atac is not None:
             check_width("mem_net_route", T, MAX_PACKETS, "packets")
@@ -84,6 +92,15 @@ def check_card_limits(params: EngineParams, n_barriers: int) -> None:
         check_width("atac_route", T, MAX_LANES, "lanes")
     if "barrier" in params.units:
         check_width("barrier_sync", n_barriers, MAX_BARRIERS, "barriers")
+
+
+def mem_phase_names(params: EngineParams) -> tuple:
+    """The memory engine's phase names, in its skip-vector order
+    (`graphite_tpu/engine/simulator.py:285-292`)."""
+    if params.mem.is_shl2:
+        return SHL2_PHASE_NAMES
+    return ("requester", "home_evict", "home_start", "sharer",
+            "home_finish", "requester_fill")
 
 
 def _not_ported(what: str, item: int):
@@ -481,7 +498,8 @@ class Simulator:
             state.noc_user = init_atac_state(user_atac, self.device)
         models = ModelCtx()
         if mem_params is not None:
-            state.mem = init_mem_state(mem_params, self.device)
+            state.mem = (init_shl2_state if mem_params.is_shl2
+                         else init_mem_state)(mem_params, self.device)
             models.mem = MemCtx(mem_params, self.device)
         if iocoom_params is not None:
             state.ioc = init_iocoom_state(n_tiles, iocoom_params,
@@ -519,10 +537,9 @@ class Simulator:
             return None
         protocol = cfg.get_string("caching_protocol/type",
                                   "pr_l1_pr_l2_dram_directory_msi")
-        if protocol in ("pr_l1_sh_l2_msi", "pr_l1_sh_l2_mesi"):
-            raise _not_ported(f"the caching protocol {protocol!r}", 8)
         if protocol not in ("pr_l1_pr_l2_dram_directory_msi",
-                            "pr_l1_pr_l2_dram_directory_mosi"):
+                            "pr_l1_pr_l2_dram_directory_mosi",
+                            "pr_l1_sh_l2_msi", "pr_l1_sh_l2_mesi"):
             raise NotImplementedError(
                 f"caching protocol {protocol!r} pending")
         return MemParams.from_config(config)
@@ -649,5 +666,20 @@ class Simulator:
 
     def line_census(self, lines) -> dict:
         """The per-line coherence view of the current memory state
-        (`memory/engine.py` line_census)."""
-        return line_census(self.state.mem, self.params.mem, lines)
+        (`memory/engine.py` line_census, or `memory/engine_shl2.py`
+        shl2_line_census under a shared-L2 protocol)."""
+        census = (shl2_line_census if self.params.mem.is_shl2
+                  else line_census)
+        return census(self.state.mem, self.params.mem, lines)
+
+    @property
+    def last_phase_skips(self) -> "dict | None":
+        """The shared-L2 engine's per-phase skip counts so far (phase
+        name -> count, `mem_phase_names` order; counted on the CPU path
+        only), or None for a run without that engine (the port keeps no
+        skip counts for the private-L2 engine)."""
+        skips = getattr(self.state.mem, "phase_skips", None)
+        if skips is None:
+            return None
+        names = mem_phase_names(self.params)
+        return {n: int(v) for n, v in zip(names, skips.tolist())}

@@ -410,11 +410,16 @@ def subquantum_iteration(params: EngineParams, trace: DeviceTrace,
                     syscall_rt_ps=params.syscall_rt_ps, lanes=lanes,
                     p2p_slack_ps=params.p2p_slack_ps, p2p_round=p2p_round)
     if params.mem is not None:
-        from graphite_tpu_torch.memory.engine import memory_engine_step
-
-        memory_engine_step(models.mem, state.mem, lanes, trace, core,
-                           state.models_enabled, lanes.progress,
-                           lanes.mem_ok)
+        if params.mem.is_shl2:
+            from graphite_tpu_torch.memory.engine_shl2 import (
+                shl2_engine_step as engine_step,
+            )
+        else:
+            from graphite_tpu_torch.memory.engine import (
+                memory_engine_step as engine_step,
+            )
+        engine_step(models.mem, state.mem, lanes, trace, core,
+                    state.models_enabled, lanes.progress, lanes.mem_ok)
     if "net" in units:
         # a route call with no live sender is the identity on the queues
         # (the JAX net block's gate is only a skip)

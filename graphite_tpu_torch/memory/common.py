@@ -26,7 +26,8 @@ from graphite_tpu_torch.memory.params import MemParams
 from graphite_tpu_torch.memory.state import (
     DIR_ID_BITS, DIR_NSH_SHIFT, DIR_OWNER_SHIFT, DIR_STATE_SHIFT,
     DIR_TAG_BITS, MOD_CORE, MOD_DIR, MOD_L1D, MOD_L1I, MOD_L2, MOD_NET_MEM,
-    MSG_NONE, MT_BITS,
+    MSG_NONE, MT_BITS, SHL2_CLOC_SHIFT, SHL2_NSH_SHIFT, SHL2_OWNER_SHIFT,
+    SHL2_STATE_SHIFT,
 )
 from graphite_tpu_torch.time_types import cycles_to_ps
 from graphite_tpu_torch.trace.schema import (
@@ -158,6 +159,58 @@ def dir_word(tag, dstate, owner, nsh, base):
     return w
 
 
+# --- the shared-L2 engine's embedded directory rows ------------------------
+# (`graphite_tpu/memory/engine_shl2.py:118-182`): each home lane's [T, W2]
+# word row and [T, W2, SW] sharer row at one slice set, changed in place
+# on the row copies and written back once (`shl2_rows`, `shl2_store`)
+
+def shl2_rows(d, sets, rows):
+    """Each home's embedded-directory rows at `sets` (copies)."""
+    T, S2, W2 = d.word.shape
+    return d.word[rows, sets], d.sharers.view(T, S2, W2, -1)[rows, sets]
+
+
+def shl2_store(d, sets, rows, dw, dsh) -> None:
+    """Write each home's rows back (rows are unique per home)."""
+    T, S2, W2 = d.word.shape
+    d.word[rows, sets] = dw
+    d.sharers.view(T, S2, W2, -1)[rows, sets] = dsh
+
+
+def shl2_fields(word):
+    """(dstate, owner, nsharers) of packed embedded-directory words."""
+    return (word & 7, ((word >> SHL2_OWNER_SHIFT) & _ID_MASK) - 1,
+            (word >> SHL2_NSH_SHIFT) & _ID_MASK)
+
+
+def shl2_entry(dw, dsh, way):
+    """(word, sharers [T, SW]) at each home's `way`."""
+    rows = arange(dw.shape[0], dw.device)
+    return dw[rows, way], dsh[rows, way]
+
+
+def shl2_update(dw, dsh, way, mask, *, dstate=None, owner=None,
+                nsharers=None, cloc=None, sharers=None) -> None:
+    """Masked in-place write of the fields given at each home's `way` of
+    its row copies (`_row_update`, `_rowsh_update`)."""
+    rows = arange(dw.shape[0], dw.device)
+    cur = dw[rows, way]
+    new = cur
+    for val, shift, m, add in ((dstate, SHL2_STATE_SHIFT, 7, 0),
+                               (owner, SHL2_OWNER_SHIFT, _ID_MASK, 1),
+                               (nsharers, SHL2_NSH_SHIFT, _ID_MASK, 0),
+                               (cloc, SHL2_CLOC_SHIFT, 3, 0)):
+        if val is not None:
+            # a Python int fills (no host-to-device copy inside a graph)
+            v = (cur.new_full(cur.shape, val) if isinstance(val, int)
+                 else val.to(torch.int64).expand(cur.shape))
+            new = dir_set_field(new, v + add, shift, m)
+    dw[rows, way] = torch.where(mask, new, cur)
+    if sharers is not None:
+        cur_sh = dsh[rows, way]
+        dsh[rows, way] = torch.where(mask[:, None], sharers, cur_sh)
+
+
 # --- elections -------------------------------------------------------------
 
 def row_earliest(cell_type, cell_time):
@@ -209,6 +262,19 @@ def mem_net_latency_ps(mp: MemParams, src, dst, bits, enabled):
     cycles = hops * mp.hop_latency_cycles + torch.where(src == dst, 0, flits)
     cycles = torch.where(enabled, cycles, 0)
     return cycles_to_ps(cycles, mp.net_freq_mhz)
+
+
+def dram_round_trip(mp: MemParams, device) -> torch.Tensor:
+    """int64[T]: each shared-L2 home slice's DRAM fetch round trip with
+    the models on (`graphite_tpu/memory/engine_shl2.py:357-365`
+    `_dram_lat_ps`): the zero-load MEMORY net to the line's memory
+    controller and back, plus the access."""
+    home = arange(mp.n_tiles, device)
+    mc = torch.tensor(mp.mc_tiles, dtype=torch.int64, device=device)
+    on = torch.ones((), dtype=torch.bool, device=device)
+    lat = mem_net_latency_ps(mp, home, mc[home % len(mp.mc_tiles)],
+                             mp.rep_bits, on)
+    return 2 * lat + (mp.dram_latency_ns + mp.dram_processing_ns) * 1000
 
 
 # --- L2 line utilization: per line, reads (low 16) | writes << 16 -----------
@@ -359,10 +425,12 @@ class MemTiming:
 
 
 def ccycles(n, fmhz, enabled):
-    """cycles -> ps at each tile's frequency, 0 while models are off."""
-    ps = cycles_to_ps(torch.as_tensor(n, dtype=torch.int64,
-                                      device=fmhz.device), fmhz)
-    return torch.where(enabled, ps, 0)
+    """cycles -> ps at each tile's frequency, 0 while models are off (a
+    Python int `n` makes no host-to-device copy: the CUDA graphs of the
+    plain phases call it)."""
+    if not isinstance(n, int):
+        n = torch.as_tensor(n, dtype=torch.int64, device=fmhz.device)
+    return torch.where(enabled, cycles_to_ps(n, fmhz), 0)
 
 
 def gated(ps: int, enabled) -> torch.Tensor:

@@ -16,7 +16,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from graphite_tpu_torch.memory.common import MemTiming, mem_net_latency_ps
+from graphite_tpu_torch.memory.common import (
+    MemTiming, dram_round_trip, mem_net_latency_ps,
+)
 from graphite_tpu_torch.memory.params import MemParams
 from graphite_tpu_torch.time_types import cycles_to_ps
 
@@ -60,10 +62,20 @@ class MemCtx:
                                device=device)
         self.mc64 = self.mc.to(torch.int64)
         self.tiles = torch.arange(T, dtype=torch.int64, device=device)
+        # the shared-L2 slices' DRAM round trips (int64[T], models on)
+        self.dram_rt = (dram_round_trip(mp, device) if mp.is_shl2
+                        else None)
         # the card's CUDA graphs of the plain phases (memory/engine.py)
         from graphite_tpu_torch.memory.engine import PhaseGraphs
 
-        self.phase_graphs = PhaseGraphs()
+        if mp.is_shl2:
+            from graphite_tpu_torch.memory.engine_shl2 import (
+                shl2_graph_phases,
+            )
+
+            self.phase_graphs = PhaseGraphs(shl2_graph_phases)
+        else:
+            self.phase_graphs = PhaseGraphs()
         # the zero-load MEMORY-net latency of every (src, dst) pair, for
         # header-only (False) and line-carrying (True) messages
         on = torch.ones((), dtype=torch.bool, device=device)

@@ -304,7 +304,11 @@ class PhaseGraphs:
     kernels' counts (`ops.KERNELS`); `replays` counts the host's graph
     launches and `captures` the states captured."""
 
-    def __init__(self):
+    def __init__(self, phases=None):
+        # (ctx, enabled, freq) -> the functions fn(ms, progress) captured,
+        # one graph each (`graph_phases`; the shared-L2 engine's
+        # `engine_shl2.shl2_graph_phases`)
+        self.phases = phases or graph_phases
         self.refs = ()
         self.graphs = None
         self.replays = 0
@@ -315,14 +319,8 @@ class PhaseGraphs:
         if (len(self.refs) != len(objs)
                 or any(r() is not o for r, o in zip(self.refs, objs))):
             self.graphs = None
-            evict = _capture(ms, progress, lambda m, p: home_evictions(
-                ctx, m, enabled, p))
-
-            def sharer_acks(m, p):
-                sharer_step(ctx, m, ctx.cycle_ps(freq, enabled), enabled, p)
-                home_acks_and_finish(ctx, m, enabled, p)
-
-            self.graphs = (evict, _capture(ms, progress, sharer_acks))
+            self.graphs = tuple(_capture(ms, progress, fn)
+                                for fn in self.phases(ctx, enabled, freq))
             self.refs = tuple(map(weakref.ref, objs))
             self.captures += 1
         return self.graphs
@@ -333,6 +331,18 @@ class PhaseGraphs:
         self.replays += 1
         for k in launches:
             k.launches += 1
+
+
+def graph_phases(ctx, enabled, freq) -> tuple:
+    """The private-L2 engine's two graphs: phase 2, and phases 4-5."""
+    def evict(m, p):
+        home_evictions(ctx, m, enabled, p)
+
+    def sharer_acks(m, p):
+        sharer_step(ctx, m, ctx.cycle_ps(freq, enabled), enabled, p)
+        home_acks_and_finish(ctx, m, enabled, p)
+
+    return (evict, sharer_acks)
 
 
 def _capture(ms, progress, fn) -> tuple:

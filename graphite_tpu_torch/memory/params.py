@@ -271,6 +271,13 @@ class MemParams:
         from a sharer instead of DRAM."""
         return self.protocol == "pr_l1_pr_l2_dram_directory_mosi"
 
+    @property
+    def is_shl2(self) -> bool:
+        """A shared-L2 protocol (`pr_l1_sh_l2_msi` / `_mesi`): the
+        directory is embedded in each home's L2 slice
+        (memory/engine_shl2.py)."""
+        return self.protocol.startswith("pr_l1_sh_l2")
+
     @classmethod
     def from_config(cls, sc: SimConfig) -> "MemParams":
         cfg = sc.cfg

@@ -1,12 +1,15 @@
 """Memory-subsystem state as tensors: caches, directory, mailboxes, DRAM.
 
-Port of `graphite_tpu/memory/state.py` for the private-L1/L2 MSI
-directory protocol.  Every leaf keeps the JAX leaf's shape and, where
+Port of `graphite_tpu/memory/state.py` for the private-L1/L2 directory
+protocols (`MemState`), and of the shared-L2 engine's state
+(`graphite_tpu/memory/engine_shl2.py:95-348`: `ShL2State`, its embedded
+directory `ShL2Dir` and its transactions `ShL2Txn`).  Every leaf keeps the JAX leaf's shape and, where
 torch has the type, its dtype.  The uint32 words do not: torch has no
 uint32 `>>` or `+` worth trusting, so
 
  - the directory sharer bitvectors and the transactions' pending sets
-   (`DirectoryArrays.sharers`, `TxnState.pending`) hold each uint32 word's
+   (`DirectoryArrays.sharers`, `TxnState.pending`, and the shared-L2
+   engine's `ShL2Dir.sharers`, `ShL2Txn.pending`) hold each uint32 word's
    bit pattern as int32 — they are only ever and-ed, or-ed, tested bit by
    bit and compared with 0, for which the sign does not matter, and at
    1024 tiles the sharers store is 2.1 GB as int32 (4.3 GB as int64);
@@ -44,12 +47,14 @@ MSG_WB_REP = 8
 MSG_SH_REP = 9
 MSG_EX_REP = 10
 MSG_NULLIFY = 11
+MSG_EXCL_REP = 12    # shared-L2 MESI: the EXCLUSIVE grant of a lone read
 
 # directory states (`directory_state.h`)
 DIR_UNCACHED = 0
 DIR_SHARED = 1
 DIR_MODIFIED = 2
 DIR_OWNED = 3
+DIR_EXCLUSIVE = 4    # shared-L2 MESI: one clean exclusive L1 copy
 
 # requester phases
 PHASE_IDLE = 0
@@ -70,6 +75,20 @@ DIR_STATE_SHIFT = 34     # bits 34..36: directory state
 DIR_OWNER_SHIFT = 37     # bits 37..49: owner tile + 1
 DIR_NSH_SHIFT = 50       # bits 50..62: sharer count
 DIR_ID_BITS = 13         # owner/nsharers field width (tiles <= 8190)
+
+# the shared-L2 engine's embedded directory word (int64[T, S2, W2], one a
+# slice line; all-zero = UNCACHED, owner -1, no sharers, cloc 0)
+SHL2_STATE_SHIFT = 0     # bits 0..2: directory state
+SHL2_OWNER_SHIFT = 3     # bits 3..15: owner tile + 1
+SHL2_NSH_SHIFT = 16      # bits 16..28: sharer count
+SHL2_CLOC_SHIFT = 29     # bits 29..30: caching component (MOD_L1I/L1D)
+# the L2 slice's data state of a line whose DRAM fetch is in flight
+DATA_INVALID = 5
+# `ShL2Txn.dram_ready_ps` of a home with no fetch in flight
+FAR = 2**62
+# the shared-L2 engine's phases, in the order of `ShL2State.phase_skips`
+SHL2_PHASE_NAMES = ("requester", "sharer", "home_evict", "home_finish",
+                    "home_start", "requester_fill")
 
 # miss-type tracking hash space: 2^16 buckets = 2048 words per set
 MT_BITS = 1 << 16
@@ -200,6 +219,61 @@ class MemState(_TensorTree):
     noc: "object | None" = None
 
 
+@dataclasses.dataclass
+class ShL2Dir(_TensorTree):
+    """The directory embedded in each home's L2 slice, one entry a slice
+    line (`graphite_tpu/memory/engine_shl2.py` ShL2Dir)."""
+
+    word: torch.Tensor       # int64[T(home), S2, W2] packed (SHL2_* above)
+    sharers: torch.Tensor    # int32[T, S2, W2*SW] uint32 bit patterns
+
+
+@dataclasses.dataclass
+class ShL2Txn(_TensorTree):
+    """One active transaction per home slice."""
+
+    active: torch.Tensor          # bool[T]
+    mtype: torch.Tensor           # uint8[T]
+    line: torch.Tensor            # int32[T]
+    requester: torch.Tensor       # int32[T]
+    req_comp: torch.Tensor        # uint8[T] MOD_L1I / MOD_L1D
+    time_ps: torch.Tensor         # int64[T]
+    pending: torch.Tensor         # int32[T, SW] uint32 bit patterns
+    dram_ready_ps: torch.Tensor   # int64[T] (FAR: no fetch in flight)
+    got_flush: torch.Tensor       # bool[T]: dirty data arrived
+    saved_valid: torch.Tensor     # bool[T]
+    saved_type: torch.Tensor      # uint8[T]
+    saved_line: torch.Tensor      # int32[T]
+    saved_requester: torch.Tensor  # int32[T]
+    saved_comp: torch.Tensor      # uint8[T]
+    saved_time_ps: torch.Tensor   # int64[T]
+    last_line: torch.Tensor       # int32[T]
+    last_done_ps: torch.Tensor    # int64[T]
+
+
+@dataclasses.dataclass
+class ShL2State(_TensorTree):
+    """The shared-L2 engine's state (`engine_shl2.py` ShL2State): private
+    L1s, each home's L2 slice with its embedded directory, and the
+    mailboxes, requesters and counters the private-L2 engine has too.
+    `phase_skips` counts, in `SHL2_PHASE_NAMES` order, the phases the CPU
+    path skipped (on the card every phase runs and nothing is counted);
+    the JAX-only `live` is recomputed where a checkpoint needs it."""
+
+    l1i: CacheArrays
+    l1d: CacheArrays
+    l2: CacheArrays              # the home's slice (home-indexed lines)
+    dir: ShL2Dir
+    mail: MemMailboxes
+    txn: ShL2Txn
+    req: RequesterState
+    counters: MemCounters
+    func_mem: torch.Tensor       # int64[mem_words + 1] uint32 words
+    func_errors: torch.Tensor    # int64[]
+    phase_skips: torch.Tensor    # int64[6]
+    noc: "object | None" = None  # the MEMORY net's contention state
+
+
 def make_cache(n_tiles: int, num_sets: int, num_ways: int,
                device) -> CacheArrays:
     """Free lines (-1) with LRU ranks 0..W-1 in every set."""
@@ -209,20 +283,24 @@ def make_cache(n_tiles: int, num_sets: int, num_ways: int,
                        .contiguous())
 
 
-def init_mem_state(mp: MemParams, device) -> MemState:
-    """The zero state (`graphite_tpu/memory/state.py` init_mem_state)."""
-    T = mp.n_tiles
-    SW = mp.sharer_words
-    DS, DW = mp.dir_sets, mp.dir_ways
-    i64, i32, u8 = torch.int64, torch.int32, torch.uint8
-
-    def z(shape, dtype=i64):
+def _z(device):
+    def z(shape, dtype=torch.int64):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     def full(shape, value, dtype):
         return torch.full((shape,) if isinstance(shape, int) else shape,
                           value, dtype=dtype, device=device)
 
+    return z, full
+
+
+def init_mem_common(mp: MemParams, device) -> dict:
+    """The pieces both engines share (`graphite_tpu/memory/state.py`
+    init_mem_common): L1s and L2, mailboxes, requesters, counters, the
+    functional store and the MEMORY net's queues."""
+    T = mp.n_tiles
+    i32, u8 = torch.int32, torch.uint8
+    z, full = _z(device)
     mail = MemMailboxes(
         req_type=z(T, u8), req_home=z(T, i32), req_line=z(T, i32),
         req_time=z(T),
@@ -241,6 +319,24 @@ def init_mem_state(mp: MemParams, device) -> MemState:
     )
     counters = MemCounters(**{
         n: z((T, 8) if n == "line_util_hist" else T) for n in COUNTER_NAMES})
+    return dict(
+        l1i=make_cache(T, mp.l1i.num_sets, mp.l1i.num_ways, device),
+        l1d=make_cache(T, mp.l1d.num_sets, mp.l1d.num_ways, device),
+        l2=make_cache(T, mp.l2.num_sets, mp.l2.num_ways, device),
+        mail=mail, req=req, counters=counters,
+        # +1 scratch word absorbing masked-off dummy writes
+        func_mem=z(max(mp.func_mem_words, 1) + 1),
+        func_errors=z(()),
+        noc=_init_noc(mp, device))
+
+
+def init_mem_state(mp: MemParams, device) -> MemState:
+    """The zero state (`graphite_tpu/memory/state.py` init_mem_state)."""
+    T = mp.n_tiles
+    SW = mp.sharer_words
+    DS, DW = mp.dir_sets, mp.dir_ways
+    i32, u8 = torch.int32, torch.uint8
+    z, full = _z(device)
     txn = TxnState(
         active=z(T, torch.bool), mtype=z(T, u8), line=z(T, i32),
         requester=z(T, i32), time_ps=z(T), pending=z((T, SW), i32),
@@ -252,23 +348,37 @@ def init_mem_state(mp: MemParams, device) -> MemState:
     )
     l2_shape = (T, mp.l2.num_sets, mp.l2.num_ways)
     return MemState(
-        l1i=make_cache(T, mp.l1i.num_sets, mp.l1i.num_ways, device),
-        l1d=make_cache(T, mp.l1d.num_sets, mp.l1d.num_ways, device),
-        l2=make_cache(T, mp.l2.num_sets, mp.l2.num_ways, device),
         l2_cloc=z(l2_shape, u8),
         l2_util=(z(l2_shape) if mp.l2.track_line_utilization else None),
         directory=DirectoryArrays(entry=z((T, DS, DW)),
                                   sharers=z((T, DS, DW * SW), i32)),
         txn=txn,
-        mail=mail,
-        req=req,
-        counters=counters,
-        # +1 scratch word absorbing masked-off dummy writes
-        func_mem=z(max(mp.func_mem_words, 1) + 1),
-        func_errors=z(()),
         mt=(z((T, 3, MT_WORDS)) if mp.l2.track_miss_types else None),
-        noc=_init_noc(mp, device),
+        **init_mem_common(mp, device),
     )
+
+
+def init_shl2_state(mp: MemParams, device) -> ShL2State:
+    """The shared-L2 engine's zero state (`graphite_tpu/memory/
+    engine_shl2.py` init_shl2_state)."""
+    T = mp.n_tiles
+    SW = mp.sharer_words
+    S2, W2 = mp.l2.num_sets, mp.l2.num_ways
+    i32, u8, b = torch.int32, torch.uint8, torch.bool
+    z, full = _z(device)
+    txn = ShL2Txn(
+        active=z(T, b), mtype=z(T, u8), line=z(T, i32),
+        requester=z(T, i32), req_comp=z(T, u8), time_ps=z(T),
+        pending=z((T, SW), i32), dram_ready_ps=full(T, FAR, torch.int64),
+        got_flush=z(T, b), saved_valid=z(T, b), saved_type=z(T, u8),
+        saved_line=z(T, i32), saved_requester=z(T, i32),
+        saved_comp=z(T, u8), saved_time_ps=z(T),
+        last_line=full(T, -1, i32), last_done_ps=z(T),
+    )
+    return ShL2State(
+        dir=ShL2Dir(word=z((T, S2, W2)), sharers=z((T, S2, W2 * SW), i32)),
+        txn=txn, phase_skips=z(len(SHL2_PHASE_NAMES)),
+        **init_mem_common(mp, device))
 
 
 def _init_noc(mp: MemParams, device):

@@ -18,6 +18,9 @@
 | `mem_requester_fill` | memory/engine.py `_requester_fill` :2547-2712    |
 | `iocoom_commit`      | models/iocoom.py `iocoom_commit` :129-330        |
 | `mem_net_route`      | memory/engine.py `mem_net_send` :251-277 (phases 4-5) |
+| `shl2_requester`     | memory/engine_shl2.py `_phase_requester` :407-521 |
+| `shl2_home_start`    | memory/engine_shl2.py `_home_starts` :933-1138   |
+| `shl2_requester_fill` | memory/engine_shl2.py `_requester_fill` :1141-1230 |
 
 Each wrapper runs its `*_plain` PyTorch version for CPU tensors and
 launches its kernel (`csrc/<name>.cu`) for CUDA tensors, or raises; it
@@ -38,6 +41,9 @@ from graphite_tpu_torch.ops import (
     mem_requester as _mem_requester,
     mem_requester_fill as _mem_requester_fill,
     noc_route as _noc_route,
+    shl2_home_start as _shl2_home_start,
+    shl2_requester as _shl2_requester,
+    shl2_requester_fill as _shl2_requester_fill,
     user_mailbox as _user_mailbox,
 )
 from graphite_tpu_torch.ops.atac_route import atac_route, atac_route_plain
@@ -62,13 +68,23 @@ from graphite_tpu_torch.ops.mem_requester_fill import (
     mem_requester_fill, mem_requester_fill_plain,
 )
 from graphite_tpu_torch.ops.noc_route import noc_route, noc_route_plain
+from graphite_tpu_torch.ops.shl2_home_start import (
+    shl2_home_start, shl2_home_start_plain,
+)
+from graphite_tpu_torch.ops.shl2_requester import (
+    shl2_requester, shl2_requester_plain,
+)
+from graphite_tpu_torch.ops.shl2_requester_fill import (
+    shl2_requester_fill, shl2_requester_fill_plain,
+)
 from graphite_tpu_torch.ops.user_mailbox import user_mailbox, user_mailbox_plain
 
 KERNELS = {
     m.KERNEL.name: m.KERNEL
     for m in (_lane_fetch_cost, _user_mailbox, _barrier_sync, _lane_commit,
               _mem_requester, _mem_home_start, _mem_requester_fill,
-              _iocoom_commit, _noc_route, _atac_route, _mem_net_route)
+              _iocoom_commit, _noc_route, _atac_route, _mem_net_route,
+              _shl2_requester, _shl2_home_start, _shl2_requester_fill)
 }
 # the `lax_p2p` instantiation of lane_fetch_cost and the MOSI / scheme
 # instantiation of mem_home_start, counted apart
@@ -99,6 +115,8 @@ __all__ = [
     "mem_home_start", "mem_home_start_plain", "mem_net_route",
     "mem_net_route_plain", "mem_requester",
     "mem_requester_fill", "mem_requester_fill_plain", "mem_requester_plain",
-    "noc_route", "noc_route_plain", "pack_counts", "reset_launch_counts", "user_mailbox",
-    "user_mailbox_plain",
+    "noc_route", "noc_route_plain", "pack_counts", "reset_launch_counts",
+    "shl2_home_start", "shl2_home_start_plain", "shl2_requester",
+    "shl2_requester_fill", "shl2_requester_fill_plain",
+    "shl2_requester_plain", "user_mailbox", "user_mailbox_plain",
 ]

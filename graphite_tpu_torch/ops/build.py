@@ -63,7 +63,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_NAMES = ("lane_fetch_cost", "user_mailbox", "barrier_sync",
                 "lane_commit", "mem_requester", "mem_home_start",
                 "mem_requester_fill", "iocoom_commit", "noc_route",
-                "atac_route", "mem_net_route")
+                "atac_route", "mem_net_route", "shl2_requester",
+                "shl2_home_start", "shl2_requester_fill")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -74,7 +75,8 @@ BUILD_LOGS: dict = {}
 def _source_hash(name: str) -> str:
     h = hashlib.sha256()
     for fn in (f"{name}.cu", "common.cuh", "mem_common.cuh",
-               "queue_common.cuh", "net_route.cuh"):
+               "queue_common.cuh", "net_route.cuh", "shl2_common.cuh",
+               "fanout.cuh"):
         with open(os.path.join(CSRC_DIR, fn), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

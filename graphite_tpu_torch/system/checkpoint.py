@@ -7,9 +7,11 @@ JAX package's (`convert.checkpoint_arrays`), so a checkpoint saved by
 either package loads into the other's Simulator built from the same
 config and trace, and the resumed run finishes bit-equal to an
 uninterrupted one.  One exception: the port keeps no `mem||phase_skips`
-(the JAX engine's count of memory phases it skipped, a statistic only)
-and saves it as zeros, so a JAX run resumed from the port's checkpoint
-counts its phase skips from zero; every other leaf and result is equal.
+for the private-L2 engine (the JAX engine's count of memory phases it
+skipped, a statistic only) and saves it as zeros, so a JAX run resumed
+from the port's checkpoint counts its phase skips from zero; every other
+leaf and result is equal.  The shared-L2 engine's skip counts are the
+port's own leaf (counted on the CPU path) and are saved as they are.
 """
 
 from __future__ import annotations

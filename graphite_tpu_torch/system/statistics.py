@@ -162,7 +162,7 @@ class StatisticsManager:
             self._file("cache_line_replication").write(
                 f"{time_ns} {row}\n")
         if ("cache_line_utilization" in self.types and state.mem is not None
-                and state.mem.l2_util is not None):
+                and getattr(state.mem, "l2_util", None) is not None):
             hist = _host(state.mem.counters.line_util_hist).sum(axis=0)
             row = " ".join(f"{k}:{int(v)}" for k, v in enumerate(hist))
             self._file("cache_line_utilization").write(

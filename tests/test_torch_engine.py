@@ -38,6 +38,7 @@ from graphite_tpu_torch.engine.simulator import (
 from graphite_tpu_torch.engine.simulator import Simulator as TSimulator
 from graphite_tpu_torch.engine.step import ALL_UNITS
 
+from test_torch_memory import jax_run
 from test_torch_step import sync_heavy_batch
 
 RESULT_FIELDS = (
@@ -109,7 +110,7 @@ def assert_results_equal(jr, tr, where=""):
 def run_both(text, batch, **kw):
     batch = _batch(batch)
     js = JSimulator(JSimConfig(JConfigFile.from_string(text)), batch, **kw)
-    jr = js.run()
+    jr = jax_run(js)
     ts = port_sim(text, batch, **kw)
     tr = ts.run()
     assert_results_equal(jr, tr)

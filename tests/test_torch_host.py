@@ -33,6 +33,8 @@ from graphite_tpu_torch.models import network_user as t_net
 from graphite_tpu_torch.trace import benchmarks as t_bench
 from graphite_tpu_torch.trace import synthetic as t_syn
 from graphite_tpu_torch.trace.schema import TraceBuilder as TBuilder
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 
 CONFIGS = {
     "bench16": """

@@ -33,6 +33,8 @@ from graphite_tpu_torch.trace.benchmarks import fft_trace
 from graphite_tpu_torch.trace.schema import (
     FLAG_MEM0_VALID, Op, TraceBatch, TraceBuilder,
 )
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -178,16 +180,18 @@ def test_unsupported_configurations_raise(what):
     ackwise directory, "fft_memory" the FFT's loads over a hop-by-hop
     MEMORY net under the shared-L2 MSI, and "hop_by_hop" and "atac" the
     FFT's loads with that net as the USER and the MEMORY net under the
-    shared-L2 MESI.  Since the outputs slice ported lax_p2p and
+    shared-L2 MESI; since the shared-L2 engine runs too, each of these
+    five also asks for trace streaming (item 11), still unported.  Since
+    the outputs slice ported lax_p2p and
     barrier_host, their two cases are the statistics manager's
     device-timeline backend ("statistics_device", the telemetry ring)
     and its power trace ("power_trace", runtime energy)."""
     tb = fft_trace(16, points_per_tile=16)
     kw, sc = {}, cfg()
-    item = {"memory": 8, "iocoom": 8, "hop_by_hop": 8, "atac": 8,
+    item = {"memory": 11, "iocoom": 11, "hop_by_hop": 11, "atac": 11,
             "statistics_device": 12, "power_trace": 10, "stream": 11,
             "telemetry": 12, "profile": 12, "hist": 12, "dvfs_spec": 10,
-            "fft_memory": 8}[what]
+            "fft_memory": 11}[what]
     if what in ("statistics_device", "power_trace"):
         from graphite_tpu_torch.system import StatisticsManager
 
@@ -202,6 +206,8 @@ def test_unsupported_configurations_raise(what):
         return
     shl2_msi = "[caching_protocol]\ntype = pr_l1_sh_l2_msi\n"
     shl2_mesi = "[caching_protocol]\ntype = pr_l1_sh_l2_mesi\n"
+    if what in ("memory", "iocoom", "fft_memory", "hop_by_hop", "atac"):
+        kw = {"stream": True}
     if what == "memory":
         tb.flags[0, 1] = FLAG_MEM0_VALID
         sc = cfg(extra=shl2_msi)

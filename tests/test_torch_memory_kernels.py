@@ -25,6 +25,8 @@ from graphite_tpu_torch.config.template import config_text
 from graphite_tpu_torch.engine.simulator import Simulator
 from graphite_tpu_torch.engine.step import subquantum_iteration
 from graphite_tpu_torch.trace.benchmarks import fft_trace
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the module (the package re-exports its wrapper under the same name)

@@ -123,23 +123,24 @@ def test_trace_builders_equal(n_tiles, kind):
     "limited_broadcast", "limitless", "hop_by_hop_memory", "atac_memory"])
 def test_out_of_slice_configurations_raise(what):
     """Configurations outside the slice raise NotImplementedError naming
-    their ROADMAP.md item.  Since MOSI and the four limited directory
-    schemes run on the private-L2 engine, their cases are the shared-L2
-    protocols they would meet there: "mosi" the four-state shared-L2
-    protocol (MESI) at k = 4, each scheme under the shared-L2 MSI, and
-    each contention MEMORY net under the shared-L2 MESI."""
+    their ROADMAP.md item.  The shared-L2 protocols run since the
+    shared-L2 slice, so each case keeps its shared-L2 configuration
+    ("mosi" the four-state shared-L2 protocol (MESI) at k = 4, each
+    scheme under the shared-L2 MSI, each contention MEMORY net under the
+    shared-L2 MESI) and asks for a feature still unported with it: trace
+    streaming (item 11)."""
     shl2_msi = "[caching_protocol]\ntype = pr_l1_sh_l2_msi\n"
     shl2_mesi = "[caching_protocol]\ntype = pr_l1_sh_l2_mesi\n"
     extra, item = {
-        "mosi": (shl2_mesi + "[dram_directory]\nmax_hw_sharers = 4\n", 8),
-        "shl2_msi": (shl2_msi, 8),
-        "shl2_mesi": (shl2_mesi, 8),
+        "mosi": (shl2_mesi + "[dram_directory]\nmax_hw_sharers = 4\n", 11),
+        "shl2_msi": (shl2_msi, 11),
+        "shl2_mesi": (shl2_mesi, 11),
         "hop_by_hop_memory": ("[network]\nmemory = emesh_hop_by_hop\n"
-                              + shl2_mesi, 8),
-        "atac_memory": ("[network]\nmemory = atac\n" + shl2_mesi, 8),
+                              + shl2_mesi, 11),
+        "atac_memory": ("[network]\nmemory = atac\n" + shl2_mesi, 11),
     }.get(what, (shl2_msi + f"[dram_directory]\ndirectory_type = {what}\n",
-                 8))
+                 11))
     batch = t_syn.memory_stress_trace(4, n_accesses=5)
     sc = TSimConfig(TConfigFile.from_string(mem_text(4, extra=extra)))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        TSimulator(sc, batch, device="cpu")
+        TSimulator(sc, batch, device="cpu", stream=True)

@@ -49,6 +49,8 @@ from graphite_tpu_torch.ops.mem_home_start import mem_home_start_plain
 from graphite_tpu_torch.ops.mem_requester_fill import (
     mem_requester_fill_plain,
 )
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 
 SPLIT_DOMAINS = """
 [dvfs]

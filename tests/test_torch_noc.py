@@ -34,6 +34,8 @@ from graphite_tpu_torch.config.template import config_text
 from graphite_tpu_torch.models import network_atac as t_atac
 from graphite_tpu_torch.models import network_hop_by_hop as t_hbh
 from graphite_tpu_torch.models import queue_models as t_qm
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 
 QUEUE_KINDS = ("history_tree", "history_list", "basic", "m_g_1")
 

@@ -40,6 +40,7 @@ from graphite_tpu_torch.trace.benchmarks import radix_trace as t_radix
 from graphite_tpu_torch.trace.schema import _FIELDS
 
 from test_torch_engine import assert_results_equal, port_sim
+from test_torch_memory import jax_run
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NETS = ("emesh_hop_by_hop", "atac")
@@ -76,7 +77,7 @@ def run_both(text, batch, **kw):
     batch = batch if isinstance(batch, TraceBatch) else \
         TraceBatch.from_builders(batch)
     js = JSimulator(JSimConfig(JConfigFile.from_string(text)), batch, **kw)
-    jr = js.run()
+    jr = jax_run(js)
     ts = port_sim(text, batch, **kw)
     tr = ts.run()
     assert_results_equal(jr, tr)

@@ -92,10 +92,19 @@ def read_all(d) -> dict:
             for fn in sorted(os.listdir(d))}
 
 
-def test_sim_out_and_config_snapshot_byte_equal(tmp_path):
+@pytest.fixture(scope="module")
+def mem_runs():
+    """The functional-store workload run to its end once by each package,
+    as (text, batch, JAX simulator, its results, port simulator, its
+    results): the uninterrupted runs the sim.out and checkpoint tests
+    hold their files and resumed runs against."""
     text, batch = make_text(), mem_workload()
     js, ts = jax_sim(text, batch), port_sim(text, batch)
-    jr, tr = js.run(), ts.run()
+    return text, batch, js, js.run(), ts, ts.run()
+
+
+def test_sim_out_and_config_snapshot_byte_equal(tmp_path, mem_runs):
+    _, _, js, jr, ts, tr = mem_runs
     jout = js.write_output(jr, output_dir=str(tmp_path / "jax"))
     tout = ts.write_output(tr, output_dir=str(tmp_path / "port"))
     assert os.path.basename(jout) == os.path.basename(tout) == "sim.out"
@@ -105,14 +114,11 @@ def test_sim_out_and_config_snapshot_byte_equal(tmp_path):
     assert b"Cache Summary" in tfiles["sim.out"]
 
 
-def test_checkpoint_round_trip_and_resume(tmp_path):
+def test_checkpoint_round_trip_and_resume(tmp_path, mem_runs):
     """The port saves mid-run, a new Simulator loads, and the run finishes
     equal to the uninterrupted one (and to the JAX package's); the loaded
     state equals the saved one leaf for leaf."""
-    text, batch = make_text(), mem_workload()
-    ref = port_sim(text, batch)
-    r_ref = ref.run()
-    jr = jax_sim(text, batch).run()
+    text, batch, _, jr, _, r_ref = mem_runs
     assert_results_equal(jr, r_ref)
     sim1 = port_sim(text, batch)
     done, nq = sim1.run_chunk(3)
@@ -137,13 +143,11 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
     assert r2.func_errors == 0
 
 
-def test_checkpoints_cross_between_packages(tmp_path):
+def test_checkpoints_cross_between_packages(tmp_path, mem_runs):
     """A JAX checkpoint saved mid-run loads into the port, which finishes
     it bit-equal to JAX's uninterrupted run; and the JAX package resumes
     the port's checkpoint of the same point to the same end."""
-    text, batch = make_text(), mem_workload()
-    jref = jax_sim(text, batch)
-    r_ref = jref.run()
+    text, batch, _, r_ref, _, _ = mem_runs
     js = jax_sim(text, batch)
     done, nq = js.run_chunk(3)
     assert not done

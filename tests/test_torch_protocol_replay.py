@@ -2,12 +2,14 @@
 graphite_tpu_torch (CPU) against graphite_tpu.
 
 `graphite_tpu/analysis/protocol.py` `explore(protocol, 2, 1)` walks
-every quiescent configuration of 2 tiles and 1 line under MSI and MOSI
-(its tiny geometry: 1-way L1s and L2, a 2-way 8-set directory); each
+every quiescent configuration of 2 tiles and 1 line under MSI, MOSI and
+shared-L2 MESI (its tiny geometry: 1-way L1s and L2, a 2-way 8-set
+directory); each
 transition's action sequence (the BFS path to its configuration, then
 the step) becomes the barrier-serialized trace `_replay_builders`
 makes, padded with IALU records to one length as `differential` pads
-it.  Every transition (24 under MSI, 32 under MOSI) runs through the
+it.  Every transition (24 under MSI, 32 under MOSI, 44 under shared-L2
+MESI) runs through the
 port on the CPU and through the JAX package's one jitted program of
 that length; the final state must be equal leaf for leaf (every core,
 lane, network and memory leaf the port carries: clocks, caches,
@@ -67,7 +69,7 @@ def replay_batches(result):
 
 
 # transitions of explore(protocol, 2, 1), in BFS order
-N_TRANSITIONS = {"msi": 24, "mosi": 32}
+N_TRANSITIONS = {"msi": 24, "mosi": 32, "shl2_mesi": 44}
 
 
 @functools.lru_cache(maxsize=None)

@@ -24,6 +24,8 @@ from graphite_tpu_torch.convert import (
 from graphite_tpu_torch.engine.simulator import Simulator as TSimulator
 from graphite_tpu_torch.engine.state import DeviceTrace
 from graphite_tpu_torch.engine.state import init_state as t_init_state
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 
 CONFIG = """
 [general]

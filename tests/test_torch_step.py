@@ -38,6 +38,7 @@ from graphite_tpu_torch.engine.step import ALL_UNITS
 from graphite_tpu_torch.engine.step import (
     subquantum_iteration as t_step,
 )
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def config_text(n_tiles, scheme="lax", user="emesh_hop_counter", extra=""):
